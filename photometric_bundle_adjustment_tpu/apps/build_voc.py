@@ -21,14 +21,18 @@ def main(argv=None):
     parser.add_argument("--branching", type=int, default=10)
     parser.add_argument("--levels", type=int, default=3)
     parser.add_argument("--num-features", type=int, default=1500)
-    parser.add_argument("--device", default="cpu", choices=["cpu", "tpu"])
+    parser.add_argument("--device", default="cpu", choices=["cpu", "gpu"])
     args = parser.parse_args(argv)
 
     import jax
 
-    if args.device == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_platforms", args.device)
 
+    from photometric_bundle_adjustment_tpu.utils.runtime import (
+        configure_runtime,
+    )
+
+    configure_runtime()
     import jax.numpy as jnp
     import numpy as np
 

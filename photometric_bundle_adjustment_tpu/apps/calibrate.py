@@ -30,8 +30,8 @@ def main(argv=None):
                         help="Accepted for CLI parity; this app is headless.")
     parser.add_argument("--output", default="opt_calib.json")
     parser.add_argument("--max-iterations", type=int, default=50)
-    parser.add_argument("--device", default="cpu", choices=["cpu", "tpu"],
-                        help="f64 solver runs best on cpu; tpu uses emulated f64")
+    parser.add_argument("--device", default="cpu", choices=["cpu", "gpu"],
+                        help="the f64 solver runs best on cpu")
     args = parser.parse_args(argv)
 
     import jax
@@ -43,14 +43,13 @@ def main(argv=None):
             f"Camera model {args.cam_model!r} is not implemented. "
             f"Available: {sorted(MODELS)}"
         )
-    if args.device == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_platforms", args.device)
 
     from photometric_bundle_adjustment_tpu.utils.runtime import (
-        enable_compilation_cache,
+        configure_runtime,
     )
 
-    enable_compilation_cache()
+    configure_runtime()
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 

@@ -3,8 +3,8 @@ SfM, then refine the map photometrically with direct intensity-patch
 residuals.
 
     python -m photometric_bundle_adjustment_tpu.apps.pba \
-        --dataset-path /path/to/euroc_V1 --cam-calib opt_calib.json \
-        --max-frames 0
+        --dataset-path synthetic:0 \
+        --cam-calib refbaseline/artifacts/ref_opt_calib.json
 """
 
 from __future__ import annotations
@@ -29,28 +29,22 @@ def main(argv=None):
              "deterministically to recover the anchor patches)",
     )
     parser.add_argument("--pba-iterations", type=int, default=20)
-    parser.add_argument(
-        "--sample-bf16", action="store_true",
-        help="opt-in bf16 patch sampling in the TPU megakernel (uint8 "
-             "intensities exact; bilinear taps <=2^-8; ATE-validated)",
-    )
     parser.add_argument("--huber-intensity", type=float, default=9.0)
-    parser.add_argument("--device", default=None, choices=[None, "cpu", "tpu"])
+    parser.add_argument("--device", default=None, choices=[None, "cpu", "gpu"])
     parser.add_argument(
         "--distributed", type=int, default=0, metavar="D",
-        help="run the photometric solve landmark-sharded over a D-device "
-             "mesh (parallel/dist_fused.py).  Without D real devices this "
-             "forces a D-fake-device CPU mesh — the standard JAX recipe "
-             "for validating multi-chip sharding on one host.  Runs ONE "
-             "full-resolution distributed solve, cross-checks it against "
-             "the single-device solver, and writes the distributed "
-             "solution to --map-out.",
+        help="run the photometric solve landmark-sharded over a mesh of D "
+             "devices of the backend (parallel/dist_fused.py); an error "
+             "when fewer are present.  With --device cpu the mesh is D "
+             "virtual host devices.  Runs ONE full-resolution distributed "
+             "solve, cross-checks it against the single-device solver, "
+             "and writes the distributed solution to --map-out.",
     )
     args = parser.parse_args(argv)
 
     import os
 
-    if args.distributed:
+    if args.device == "cpu" and args.distributed:
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
             + f" --xla_force_host_platform_device_count={args.distributed}"
@@ -58,16 +52,20 @@ def main(argv=None):
 
     import jax
 
-    if args.device == "cpu" or args.distributed:
-        jax.config.update("jax_platforms", "cpu")
-        if args.distributed:
-            jax.config.update("jax_enable_x64", False)
+    if args.device:
+        jax.config.update("jax_platforms", args.device)
 
     from photometric_bundle_adjustment_tpu.utils.runtime import (
-        enable_compilation_cache,
+        configure_runtime,
     )
 
-    enable_compilation_cache()
+    configure_runtime()
+    if args.distributed > len(jax.devices()):
+        parser.error(
+            f"--distributed {args.distributed} needs {args.distributed} "
+            f"devices; the {jax.default_backend()} backend has "
+            f"{len(jax.devices())}"
+        )
 
     from photometric_bundle_adjustment_tpu.io import calib_io, dataset
     from photometric_bundle_adjustment_tpu.pipeline import pba_refine
@@ -83,31 +81,24 @@ def main(argv=None):
     pipe = SfmPipeline(images, calib, SfmConfig(), cache_dir=args.cache_dir)
     t0 = time.time()
     if args.map_in:
-        from photometric_bundle_adjustment_tpu.pipeline.sfm_pipeline import (
-            Landmark,
-        )
-
         with open(args.map_in, "rb") as f:
             m = pickle.load(f)
         # detection is deterministic, so recomputed corners carry the same
         # feature ids the saved observations reference
         if not pipe._load_cache("corners"):
             pipe.detect_keypoints()
-        pipe.cameras = dict(m["cameras"])
-        pipe.tracks = dict(m.get("tracks", {}))
-        pipe.landmarks = {
-            t: Landmark(d["inv_depth"], dict(d["obs"]),
-                        dict(d.get("outlier_obs", {})))
-            if isinstance(d, dict) else d
-            for t, d in m["landmarks"].items()
-        }
+        pipe.load_map(m)
         print(f"Loaded geometric map from {args.map_in}: {pipe.summary()}")
     else:
         pipe.run()
         print(
             f"Geometric SfM done in {time.time() - t0:.1f}s: {pipe.summary()}"
         )
+        print("Timings: " + ", ".join(
+            f"{k}={v:.2f}" for k, v in sorted(pipe.timings.items())))
 
+    parity = None
+    t1 = time.time()
     if args.distributed:
         res, parity = pba_refine.refine_photometric_distributed(
             pipe, n_devices=args.distributed,
@@ -120,14 +111,16 @@ def main(argv=None):
         res = pba_refine.refine_photometric(
             pipe, max_iterations=args.pba_iterations,
             huber_delta=args.huber_intensity,
-            sample_bf16=args.sample_bf16,
         )
+    print(f"Photometric refinement took {time.time() - t1:.2f}s")
 
     with open(args.map_out, "wb") as f:
         pickle.dump(
             {
                 "cameras": pipe.cameras,
                 "affine": getattr(pipe, "photometric_affine", {}),
+                "photometric_levels": getattr(pipe, "photometric_levels", []),
+                "distributed_parity": parity,
                 "landmarks": {
                     t: {"inv_depth": l.inv_depth, "obs": l.obs,
                         "outlier_obs": l.outlier_obs}

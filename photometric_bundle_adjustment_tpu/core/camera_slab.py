@@ -1,10 +1,10 @@
 """Slab-form (structure-of-planes) camera projection with analytic Jacobians.
 
-The photometric megakernel (ops/pba_mega.py) evaluates the whole warp chain
-in a transposed "plane" layout — every per-observation quantity is a row of
-a ``(rows, O)`` array so the observation axis rides the TPU lane dimension
-and no tiny trailing dims ever get (8, 128)-tile padded.  This module
-provides the camera-model piece of that layout: ``project_slab`` maps point
+The plane-layout geometric build (ops/geo_mega.py) evaluates the whole warp
+chain in a transposed "plane" layout — every per-observation quantity is a
+row of a ``(rows, O)`` array, so the observation axis is the long contiguous
+one and no tiny trailing dims are ever padded.  This module provides the
+camera-model piece of that layout: ``project_slab`` maps point
 planes ``(qx, qy, qz)`` (each ``(P, O)``) plus an intrinsics slab
 ``(8, O)`` to pixel planes ``(u, v)`` AND the six projection-Jacobian
 planes ``d(u,v)/d(x,y,z)`` in closed form (no autodiff, no ``(P, 2, 3)``
@@ -14,11 +14,13 @@ Formulas mirror core/cameras.py, which mirrors the reference's
 scalar-templated models (include/visnav/camera_models.h:44-421); the
 Jacobians are hand-derived chain rules of those exact expressions and are
 golden-tested against ``jax.jacfwd`` of ``cameras.project`` in
-tests/test_camera_slab.py.
+tests/test_cameras.py.  ``rot_planes`` and ``solve_lam`` are the plane-form
+rotation and the reduced-camera-system solve the plane builds share.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -154,3 +156,38 @@ def project_slab(model: str, intr, qx, qy, qz):
             f"Available: {sorted(_SLAB_MODELS)}"
         ) from None
     return fn(intr, qx, qy, qz)
+
+
+def rot_planes(q):
+    """Unit quaternion rows (N, 4) -> 3x3 list of (N,) rotation entries
+    (same element formulas as se3.quat_to_matrix)."""
+    x, y, z, w = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    one = jnp.ones_like(x)
+    return [
+        [one - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)],
+        [2 * (xy + wz), one - 2 * (xx + zz), 2 * (yz - wx)],
+        [2 * (xz - wy), 2 * (yz + wx), one - 2 * (xx + yy)],
+    ]
+
+
+def solve_lam(neq, lam, free_cam_mask, cfg=None):
+    """Per-lambda dense solve + back-substitution of a chunk-plan normal
+    equation tuple (optim/fused.py build_chunk) for any camera tangent
+    width."""
+    H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0 = neq
+    KC = H_cc_mat.shape[0]
+    K = free_cam_mask.shape[0]
+    C_ = KC // K
+    dtype = g_c.dtype
+    d_cc = jnp.clip(jnp.diagonal(H_cc_mat), 1e-12, 1e32)
+    S = H_cc_mat + jnp.diag(lam * d_cc) - S_corr0 / (1.0 + lam)
+    rhs = -(g_c.reshape(-1) - rhs_corr0 / (1.0 + lam))
+    mask = jnp.repeat(free_cam_mask.astype(dtype), C_)
+    S = S * mask[:, None] * mask[None, :] + jnp.diag(1.0 - mask)
+    cho = jax.scipy.linalg.cho_factor(S, lower=True)
+    delta_c = jax.scipy.linalg.cho_solve(cho, rhs * mask) * mask
+    delta_p = -(g_p + M @ delta_c) * inv0 / (1.0 + lam)
+    return delta_c.reshape(K, C_), delta_p

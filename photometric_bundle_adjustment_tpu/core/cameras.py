@@ -1,6 +1,6 @@
 """Batched camera projection models.
 
-TPU-native re-design of the reference's scalar-templated camera class
+Batched re-design of the reference's scalar-templated camera class
 hierarchy (include/visnav/camera_models.h:44-525).  Four models on a uniform
 ``(8,)`` parameter vector, selected by name string — "pinhole", "eucm",
 "ds", "kb4" — with batched ``project``/``unproject`` that broadcast over

@@ -1,6 +1,6 @@
 """Batched SO3/SE3 Lie-group primitives for JAX.
 
-TPU-native replacement for the reference's Sophus usage (SE3d exp/log,
+Batched replacement for the reference's Sophus usage (SE3d exp/log,
 inverse, composition, ``Dx_this_mul_exp_x_at_0`` — see
 /root/reference/thirdparty and its consumers, e.g.
 include/visnav/local_parameterization_se3.hpp:43-63).  Everything here is a

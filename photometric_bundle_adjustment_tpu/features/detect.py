@@ -1,14 +1,13 @@
-"""Shi-Tomasi corner detection, TPU-first.
+"""Shi-Tomasi corner detection.
 
 Replaces the reference's ``cv::goodFeaturesToTrack`` call
 (include/visnav/keypoints.h:133-149): Sobel gradients -> structure tensor
 (box filter) -> minimum-eigenvalue score -> quality threshold (fraction of
 the max score) -> non-maximum suppression -> top-k.  All filters run as
-zero-padded separable shift-multiply-adds on the VPU (single-channel
-``conv_general_dilated`` pads the feature dimension to an MXU tile and
-wastes 127/128 of it — the conv form measured 37 ms vs 0.03 ms per
-8-image batch on v5e); shapes are static (fixed ``num_features`` slots
-with a validity mask) so the whole front-end jits.
+zero-padded separable shift-multiply-adds (a single-channel
+``conv_general_dilated`` would spend a matrix unit on one channel);
+shapes are static (fixed ``num_features`` slots with a validity mask) so
+the whole front-end jits.
 
 The greedy min-distance NMS of OpenCV is replaced by window NMS (a corner
 survives iff it is the maximum of its (2r+1)^2 neighbourhood with
@@ -34,10 +33,9 @@ def conv1d_shift(x: jax.Array, taps, axis: int) -> jax.Array:
     unrolled shift-multiply-add over ``taps`` [(offset, weight), ...].
 
     Single-channel ``conv_general_dilated`` pads the feature dimension to
-    an MXU tile and wastes 127/128 of the array (the 3x3 conv stack
-    measured 37 ms / 8 EuRoC images on the v5e); shifted elementwise
-    maths runs on the VPU at memory bandwidth and fuses with its
-    neighbours.  out(p) = sum_k w_k * x(p + o_k along axis).
+    a matrix tile and wastes most of it; shifted elementwise maths runs at
+    memory bandwidth and fuses with its neighbours.
+    out(p) = sum_k w_k * x(p + o_k along axis).
     """
     r = max(abs(o) for o, _ in taps)
     pad = [(0, 0), (0, 0)]
@@ -146,10 +144,8 @@ def detect_keypoints(
     # greedy NMS keeps corners >= min_distance apart but retains the denser
     # of two nearby peaks; radius min_distance/2 reproduces its density.
     # Formulated as a separable shifted-max (2x(2r) jnp.maximum over padded
-    # slices) rather than lax.reduce_window: the overlapping-window
-    # reduce_window intermittently hits an XLA:TPU fusion_emitter CHECK
-    # (window_bounds != strides SIGABRT, BENCH_r02.json), and the shifted
-    # maxima fuse into the same elementwise pipeline anyway.  Scores are
+    # slices) rather than lax.reduce_window: the shifted maxima fuse into
+    # the same elementwise pipeline as the score.  Scores are
     # >= 0 here (edge + quality gates above zero everything else), so 0.0
     # is a neutral pad value.
     r = max(1, int(min_distance) // 2)

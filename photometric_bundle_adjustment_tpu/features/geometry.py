@@ -115,8 +115,8 @@ def decompose_essential(E: jax.Array):
     cof(E) = t t^T R, and [t]_x [t]_x = t t^T - I).  Decomposing -E gives
     the second rotation; the sign ambiguity of t enumerates the rest —
     exactly the four SVD candidates U W^(T) V^T, (+-)u3.  Batched small
-    SVDs are iterative Jacobi sweeps on TPU and dominated the RANSAC
-    scoring stage; this is a handful of fused elementwise ops.  Inputs
+    SVDs are iterative Jacobi sweeps on accelerators; this is a handful
+    of fused elementwise ops.  Inputs
     only approximately essential (polynomial-solver candidates) get a
     final Gram-Schmidt projection onto SO(3).
     """

@@ -7,15 +7,13 @@ Semantics of the reference's matchSets/matchDescriptors
   * second-best >= best * ratio (1.2 default, sfm.cpp:201-202),
   * and the right->left match agrees (mutual cross-check).
 
-Two interchangeable backends: a pure-XLA path (works everywhere, vmappable
-over image pairs) and the Pallas VMEM-resident kernel in ``ops.hamming``
-for the TPU hot path.  Shapes are static: descriptor arrays are padded with
-a validity mask and results use -1 for "no match".
+The distance matrix is plain XLA (vmappable over image pairs) in one of two
+bit-identical forms, xor+popcount or an int8 matrix product.  Shapes are
+static: descriptor arrays are padded with a validity mask and results use
+-1 for "no match".
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -26,11 +24,16 @@ BIG = jnp.int32(1 << 20)
 def hamming_matrix(d1: jax.Array, d2: jax.Array) -> jax.Array:
     """(N1, N2) int32 Hamming distances between packed (N, 8)-uint32 rows.
 
-    On accelerators the distance runs through the MXU's native int8 path
-    (:func:`hamming_matrix_mxu`) — bit-identical, systolic-array FLOPs;
-    the xor+popcount form stays the CPU/portable path."""
+    On accelerators the distance runs as an int8 matrix product
+    (:func:`hamming_matrix_mxu`), bit-identical to the xor+popcount form
+    that the CPU runs."""
     if jax.default_backend() != "cpu":
         return hamming_matrix_mxu(d1, d2)
+    return hamming_matrix_popcount(d1, d2)
+
+
+def hamming_matrix_popcount(d1: jax.Array, d2: jax.Array) -> jax.Array:
+    """Hamming distances as xor + population count over the eight words."""
     acc = jnp.zeros((d1.shape[0], d2.shape[0]), jnp.int32)
     for w in range(8):
         x = jnp.bitwise_xor(d1[:, w][:, None], d2[:, w][None, :])
@@ -39,18 +42,16 @@ def hamming_matrix(d1: jax.Array, d2: jax.Array) -> jax.Array:
 
 
 def hamming_matrix_mxu(d1: jax.Array, d2: jax.Array) -> jax.Array:
-    """Hamming distances through the MXU's native int8 datapath.
+    """Hamming distances as one int8 matrix product.
 
     The 256 descriptor bits are unpacked to {0,1} int8 bit-planes and
 
         H(a, b) = pop(a) + pop(b) - 2 a.b
 
     turns the distance matrix into ONE int8 matmul with exact int32
-    accumulation — bit-identical to the xor+popcount formulation while
-    the O(N^2 * 256) work rides the systolic array instead of the VPU
-    (VERDICT r4 #6: the idiomatic TPU formulation of descriptor
-    matching).  Ref: the std::bitset matcher being replaced,
-    include/visnav/keypoints.h:223-278."""
+    accumulation — bit-identical to the xor+popcount formulation, with
+    the O(N^2 * 256) work in the matrix units.  Ref: the std::bitset
+    matcher being replaced, include/visnav/keypoints.h:223-278."""
 
     def bits(d):  # (N, 8) uint32 -> (N, 256) int8 bit-planes
         shifts = jnp.arange(32, dtype=jnp.uint32)
@@ -79,11 +80,6 @@ def _best_two_from(dist, axis):
     return best, second, bidx
 
 
-def _best_two_xla(d1, d2, valid2):
-    dist = jnp.where(valid2[None, :], hamming_matrix(d1, d2), BIG)
-    return _best_two_from(dist, 1)
-
-
 def _one_way(best, second, bidx, valid1, threshold, ratio):
     """matchSets accept rule (keypoints.h:247-253)."""
     ok = (best < threshold) & (second.astype(jnp.float32) >= best.astype(jnp.float32) * ratio)
@@ -91,7 +87,7 @@ def _one_way(best, second, bidx, valid1, threshold, ratio):
     return jnp.where(ok, bidx, -1)
 
 
-@functools.partial(jax.jit, static_argnames=("use_pallas",))
+@jax.jit
 def match_descriptors(
     d1: jax.Array,
     d2: jax.Array,
@@ -99,29 +95,17 @@ def match_descriptors(
     valid2: jax.Array,
     threshold: int = 70,
     ratio: float = 1.2,
-    use_pallas: bool = False,
 ):
     """Mutual best matches.  Returns (N1,) int32: index into d2 or -1.
 
     Matches matchDescriptors (keypoints.h:259-278).
     """
-    if use_pallas:
-        from photometric_bundle_adjustment_tpu.ops import hamming
-
-        n2 = jnp.sum(valid2.astype(jnp.int32))
-        # pallas kernel masks by count; ensure valid entries are contiguous
-        b1, s1, i1 = hamming.best_two_nn(d1, d2, n2)
-        n1 = jnp.sum(valid1.astype(jnp.int32))
-        b2, s2, i2 = hamming.best_two_nn(d2, d1, n1)
-    else:
-        # ONE Hamming matrix serves both directions (hamming(a, b) is
-        # symmetric in the pair): the reverse pass reduces along axis 0
-        # instead of recomputing the XOR/popcount matrix transposed.
-        dist = hamming_matrix(d1, d2)
-        b1, s1, i1 = _best_two_from(
-            jnp.where(valid2[None, :], dist, BIG), 1)
-        b2, s2, i2 = _best_two_from(
-            jnp.where(valid1[:, None], dist, BIG), 0)
+    # ONE Hamming matrix serves both directions (hamming(a, b) is
+    # symmetric in the pair): the reverse pass reduces along axis 0
+    # instead of recomputing the XOR/popcount matrix transposed.
+    dist = hamming_matrix(d1, d2)
+    b1, s1, i1 = _best_two_from(jnp.where(valid2[None, :], dist, BIG), 1)
+    b2, s2, i2 = _best_two_from(jnp.where(valid1[:, None], dist, BIG), 0)
 
     m12 = _one_way(b1, s1, i1, valid1, threshold, ratio)  # (N1,)
     m21 = _one_way(b2, s2, i2, valid2, threshold, ratio)  # (N2,)

@@ -9,7 +9,7 @@ should fall back to the XLA path when unavailable
 
 Ratio-test precision note: the reference compares ``second >= ratio * best``
 in double (keypoints.h:251); this matcher does the same.  The XLA path
-evaluates it in float32 (f64 is emulated on TPU), so match sets can differ
+evaluates it in float32, so match sets can differ
 on exact-boundary cases (e.g. ratio 1.2, best 60, second 72: 1.2 is not
 representable in binary — f64 accepts, f32 rejects).  With ratios exactly
 representable in float32 (1.25, 1.5) the two paths agree bit-for-bit.
@@ -35,8 +35,9 @@ def _get_lib():
         os.path.dirname(os.path.dirname(__file__)), "native",
         "hamming_matcher.cpp",
     )
-    cache = os.environ.get(
-        "PBA_TPU_NATIVE_CACHE", os.path.expanduser("~/.cache/pba_tpu_native")
+    cache = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), ".native_cache",
     )
     os.makedirs(cache, exist_ok=True)
     lib_path = os.path.join(cache, "hamming_matcher.so")

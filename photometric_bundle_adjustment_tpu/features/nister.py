@@ -1,10 +1,11 @@
-"""Batched Nister 5-point minimal essential-matrix solver, TPU-first.
+"""Batched Nister 5-point minimal essential-matrix solver.
 
 Replaces the reference's OpenGV ``NISTER`` sequential RANSAC sampler
 (include/visnav/matching_utils.h:111-124) with a formulation where EVERY
 step is a fixed-shape batched tensor operation, so hundreds of minimal
 samples are solved simultaneously under vmap/jit (and the polynomial
-root-finding needs no ``eig``, which XLA does not provide on TPU):
+root-finding needs no ``eig``, which XLA does not provide on every
+backend):
 
 1. nullspace: SVD of the 5x9 epipolar constraint matrix -> basis
    E = x*E1 + y*E2 + z*E3 + E4  (w normalised to 1).
@@ -135,10 +136,8 @@ def poly_mul(a: jax.Array, b: jax.Array) -> jax.Array:
     """Product of two 1-D polynomial coefficient vectors (tiny static
     lengths), as an unrolled pad-and-add.
 
-    ``jnp.convolve`` lowers to a reversed-window convolution that
-    intermittently SIGABRTs the XLA:TPU compiler
-    (fusion_emitter.cc:4273 ``window_bounds != strides`` CHECK inside
-    ``ReverseInput::TransformWindow`` — the BENCH_r02/r03 crash); for the
+    ``jnp.convolve`` lowers to a reversed-window convolution, which is a
+    poor fit for a handful of coefficients; for the
     <= 8-coefficient polynomials of the minimal solvers this formulation
     fuses identically and avoids windowed ops entirely.
     """
@@ -154,10 +153,10 @@ def _gauss_jordan_inv(A: jax.Array) -> jax.Array:
     elimination, unrolled over the n static steps.
 
     Each step divides by the (tiny-clamped) diagonal entry and applies
-    one rank-1 update — no argmax, no row gathers.  The pivot SEARCH was
-    92% of the pivoted version's device time (0.89 -> 0.07 ms per 4096
-    10x10 systems on v5e); forgoing it costs bounded accuracy that the
-    caller's iterative-refinement steps recover (measured over 300 clean
+    one rank-1 update — no argmax, no row gathers.  The pivot SEARCH
+    dominated the pivoted version's device time; forgoing it costs
+    bounded accuracy that the caller's iterative-refinement steps
+    recover (measured over 300 clean
     5-point systems: max relative solve residual 3.0e-11 vs 1.8e-11 in
     f64, 1.5% vs 0.8% worst-case in f32 — and RANSAC's algebraic
     prescreen + scoring discards the rare ill-conditioned sample's
@@ -185,16 +184,15 @@ def _action_polynomials(A):
     powers — and the degree-10 determinant coefficients (11,) descending.
     """
     A1, A2 = A[:, :10], A[:, 10:]
-    # invert once via Gauss-Jordan, then apply by matmul (MXU): the
-    # pivoted LU factor + four triangular solves cost ~50 sequential
-    # masked steps at 10x10 and were 75% of the whole 5-point solver on
-    # the v5e (scripts/profile_nister.py); the GJ inverse is 10 steps of
+    # invert once via Gauss-Jordan, then apply by matmul: the pivoted LU
+    # factor + four triangular solves cost ~50 sequential masked steps at
+    # 10x10 (scripts/profile_nister.py); the GJ inverse is 10 steps of
     # batched rank-1 updates and the solves become batched matmuls.
     A1inv = _gauss_jordan_inv(A1)
     X = A1inv @ A2  # (10, 10)
     # two iterative-refinement steps: the elimination is the f32 accuracy
     # bottleneck, and the second step compensates the pivot-free GJ's
-    # extra rounding; each costs two 10x10 MXU matmuls
+    # extra rounding; each costs two 10x10 matmuls
     X = X + A1inv @ (A2 - A1 @ X)
     X = X + A1inv @ (A2 - A1 @ X)
 
@@ -243,9 +241,8 @@ def _eval_homog(coeffs, s, c):
     """
     D = coeffs.shape[-1] - 1
     # stack s-powers DESCENDING at trace time rather than reversing at
-    # runtime: a [..., ::-1] slice emits stablehlo.reverse, which the
-    # XLA:TPU fusion emitter intermittently SIGABRTs on when fused
-    # (fusion_emitter.cc:4273 window CHECK — same class as poly_mul's note)
+    # runtime: a [..., ::-1] slice would emit stablehlo.reverse (same
+    # class of lowering as poly_mul's note)
     ps = [jnp.ones_like(s)]
     for _ in range(D):
         ps.append(ps[-1] * s)
@@ -280,13 +277,13 @@ def real_roots(coeffs, max_roots, n_grid=256, n_bisect=14, n_newton=3):
     Returns (roots (max_roots,), valid (max_roots,)).  Projective
     theta-grid (z = tan theta) + homogeneous evaluation + fixed bisection
     + Newton polish in theta; fully fixed-shape, no ``eig`` — usable
-    inside vmap/jit on TPU.  Shared by the 5-point (degree 10) and P3P
+    inside vmap/jit on any backend.  Shared by the 5-point (degree 10) and P3P
     (degree 4) solvers.  14 bisections narrow the ~1.2e-2-wide grid
     bracket to ~7e-7 and the 3 safeguarded Newton steps square the error
     past f64 machine precision — equivalent to the original 48 pure
     bisections on a 512-point grid at a third of the sequential depth
-    and half the grid-evaluation width (the stage is latency-bound on
-    TPU; measured 2.0 -> 1.0 ms per 4096-sample batch).  Tight root
+    and half the grid-evaluation width (the stage is latency-bound).
+    Tight root
     PAIRS inside one grid cell cancel their sign change and are lost at
     any finite grid; the 62%-outlier A/B acceptance test and the f64
     E-recovery test bound that risk empirically at 256 points.
@@ -301,8 +298,7 @@ def real_roots(coeffs, max_roots, n_grid=256, n_bisect=14, n_newton=3):
     # the GRID evaluation is one matmul against a static power table
     # P[i, g] = s_g^(D-i) c_g^i (the grid is static): under the RANSAC
     # vmap this turns 4096 x 254 elementwise homogeneous evaluations
-    # (~1 ms/chunk of VPU time, the round-4 profile's largest nister
-    # piece) into a single (B, D+1) x (D+1, G) MXU product.  HIGHEST
+    # into a single (B, D+1) x (D+1, G) matrix product.  HIGHEST
     # precision: sign changes near zero pick the root brackets.
     th_np = np.linspace(-np.pi / 2, np.pi / 2, n_grid)[1:-1]
     P_np = np.stack(

@@ -1,7 +1,7 @@
-"""Batched P3P (Grunert) minimal absolute-pose solver, TPU-first.
+"""Batched P3P (Grunert) minimal absolute-pose solver.
 
 The reference localises cameras with OpenGV's EPnP inside a sequential
-RANSAC (include/visnav/map_utils.h:268-278).  The TPU re-design wants a
+RANSAC (include/visnav/map_utils.h:268-278).  The batched re-design wants a
 MINIMAL solver so hypotheses survive high outlier rates (P(clean sample)
 = (1-e)^3 for P3P vs (1-e)^6 for the round-1 6-point DLT), solved for
 hundreds of samples at once under vmap.
@@ -174,9 +174,7 @@ def p3p_candidates(f: jax.Array, Pw: jax.Array):
     Q = jnp.stack([-2.0 * ca, 2.0 * cg])                      # desc v..1
     W = jnp.stack([-n, 2.0 * n * cb, 1.0 - n])
 
-    # poly_mul, not jnp.convolve: the reversed-window conv lowering
-    # intermittently SIGABRTs the XLA:TPU fusion emitter (see
-    # features/nister.py poly_mul)
+    # poly_mul, not jnp.convolve (see features/nister.py poly_mul)
     from photometric_bundle_adjustment_tpu.features.nister import poly_mul
 
     quart = (poly_mul(P, P)

@@ -1,6 +1,6 @@
 """Vectorised RANSAC: relative pose (essential) and absolute pose (PnP).
 
-TPU-first re-design of the reference's OpenGV usage: instead of the
+Batched re-design of the reference's OpenGV usage: instead of the
 sequential hypothesise-and-verify loop inside
 ``sac::Ransac`` (matching_utils.h:81-176 NISTER 5pt;
 map_utils.h:242-302 EPnP), we draw a *fixed batch* of minimal samples, turn
@@ -77,7 +77,7 @@ def ransac_relative_pose(
     "eight_point" (needs 8 clean correspondences per sample; kept as the
     cheaper fallback).  The Nister path draws 5-point samples, solves all
     of them simultaneously (up to 10 essential candidates each), prescreens
-    every candidate by algebraic epipolar inlier count — one MXU einsum
+    every candidate by algebraic epipolar inlier count — one einsum
     over (candidates x matches), threshold 1e-3 as in the reference's
     stereo epipolar test (matching_utils.h:62-79) — and decomposes only
     the top 8 candidates into poses for the full angular scoring.

@@ -4,7 +4,7 @@ The reference exchanges stage caches and maps as cereal ``BinaryArchive``
 streams (map_utils.h:58-116 ``save_map_file``/``load_map_file``,
 sfm.cpp:1203-1211/:1261-1269 corners/matches caches) and loads its BoW
 vocabulary the same way (bow_voc.h:138-153).  This module implements that
-byte format in pure Python so the TPU framework can consume and produce
+byte format in pure Python so this framework can consume and produce
 the reference binary's own files with no C++ bridge.
 
 Schema, derived from the vendored cereal 1.x binary archive rules plus the

@@ -1,7 +1,7 @@
 """Camera calibration: full-batch NLLS over per-frame body poses, per-camera
 extrinsics, and intrinsics on an AprilGrid sequence.
 
-TPU-native re-design of the reference calibration app
+Batched re-design of the reference calibration app
 (src/calibration.cpp:366-428): residual per detected grid corner
 
     r = p_2d - pi( T_i_c^-1 * T_w_i^-1 * p_grid_3d )

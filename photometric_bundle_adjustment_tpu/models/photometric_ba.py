@@ -18,8 +18,7 @@ therefore 8-dimensional (6 SE3 + 2 affine) and landmark blocks stay scalar,
 so the exact same Schur-complement LM core (optim/ba.py) solves it.
 
 Image sampling is bilinear over a flat (K*H*W,) intensity buffer with
-per-observation linear-index gathers — the TPU-friendly formulation (no
-per-observation image slices).  Forward-mode autodiff through the bilinear
+per-observation linear-index gathers (no per-observation image slices).  Forward-mode autodiff through the bilinear
 weights yields the image-gradient chain term exactly.
 """
 
@@ -59,13 +58,9 @@ def _gather_windows(images_flat: jax.Array, img_idx: jax.Array,
                     y0i: jax.Array, x0i: jax.Array, H: int, W: int):
     """Fetch the 4 bilinear taps as SCALAR gathers from the flat buffer.
 
-    Returns (v00, v01, v10, v11), each shaped like ``y0i``.  Scalar taps
-    are the fastest XLA formulation on TPU: a (2, 2)-slice gather from a
-    (K*H, W) view (one gather op per window instead of four) measured
-    495 ms per photometric iteration vs 20 ms for scalar taps at 24k
-    observations — XLA lowers sliced gathers per element with a large
-    per-slice overhead (same pathology as the tile-fetch note below).
-    The HBM-gather-free path is the Pallas kernel (ops/patch_sample.py).
+    Returns (v00, v01, v10, v11), each shaped like ``y0i``.  XLA lowers
+    a sliced (2, 2)-window gather per element with a per-slice overhead,
+    so the four taps are separate scalar gathers.
     """
     base = img_idx.astype(jnp.int32) * (H * W)
 
@@ -138,7 +133,7 @@ def bilinear_sample_and_grad(
 
 
 # ---------------------------------------------------------------------------
-# tile-based sampling: the TPU-native hot path
+# tile-based sampling
 # ---------------------------------------------------------------------------
 #
 # The 8 projected patch pixels of one observation land within a few pixels
@@ -150,14 +145,12 @@ def bilinear_sample_and_grad(
 #     val = wy^T  tile  wx,   gx = wy^T tile dwx,   gy = dwy^T tile wx
 #
 # where wx[c] = (c==x0)(1-fx) + (c==x0+1) fx etc. — exactly the 4-tap
-# bilinear math with the irregular access replaced by dense FLOPs.
-# MEASURED (TPU v5e, EuRoC scale, 24k obs): the scalar-gather path costs
-# 9.4 ms per residual evaluation and the tile path 38.8 ms — XLA lowers a
-# sliced gather per ELEMENT, so the tile fetch moves 4.6M elements where
-# the per-tap path moves the minimal 768k.  Scalar gathers therefore stay
-# the default XLA formulation ("gather"); "tile" is retained as the
-# reference semantics for the Pallas patch-sampling kernel, which stages
-# each target image in VMEM and samples tiles from on-chip memory.
+# bilinear math with the irregular access replaced by dense FLOPs.  XLA
+# lowers a sliced gather per ELEMENT, so the tile fetch moves 6x the
+# elements of the per-tap path; scalar gathers therefore stay the default
+# formulation ("gather"), and "tile" is kept as the reference semantics
+# for a kernel that would stage a target image on chip and sample tiles
+# from it.
 # Pixels whose warp falls outside the tile (pathological stretch,
 # > ~2.2x patch scale) clamp to the tile edge with zero gradient — the
 # same treatment as out-of-image samples.
@@ -487,470 +480,3 @@ def scale_problem_to_level(problem: ba.BAProblem, level: int) -> ba.BAProblem:
         intr_target=scale_intrinsics(aux.intr_target, level),
     )
     return problem._replace(obs=problem.obs._replace(aux=aux))
-
-
-# ---------------------------------------------------------------------------
-# kernel-sampled batched paths (ops/patch_sample.py)
-# ---------------------------------------------------------------------------
-
-
-def imagesort_problem(problem: ba.BAProblem, n_images: int):
-    """Host-side: reorder observations into ``ops.patch_sample.group_layout``
-    order (sorted by target image, each image's range padded to the kernel's
-    group size, padding slots valid=0).  Returns
-    ``(problem2, img_of_group, group_counts)`` for ``make_batched_fns``."""
-    from photometric_bundle_adjustment_tpu.ops import patch_sample as ps
-
-    o = problem.obs
-    order, iog, gcnt = ps.group_layout(
-        np.asarray(o.aux.target_img), n_images
-    )
-    take = np.where(order >= 0, order, 0)
-    filled = order >= 0
-
-    def reorder(x, fill=None):
-        arr = np.asarray(x)[take]
-        if fill is not None:
-            sel = filled.reshape((-1,) + (1,) * (arr.ndim - 1))
-            arr = np.where(sel, arr, np.asarray(fill, arr.dtype))
-        return jnp.asarray(arr)
-
-    aux = o.aux
-    # padding slots carry their group's image index so the kernel samples a
-    # well-defined location (their rows are zeroed downstream via valid=0)
-    timg = np.asarray(aux.target_img)[take].copy()
-    timg[~filled] = np.repeat(np.asarray(iog), ps.GROUP)[~filled]
-    aux2 = PhotometricObs(
-        uv_ref=reorder(aux.uv_ref, 0.0),
-        ref_patch=reorder(aux.ref_patch, 0.0),
-        target_img=jnp.asarray(timg),
-        intr_ref=reorder(aux.intr_ref),
-        intr_target=reorder(aux.intr_target),
-    )
-    obs2 = ba.BAObservations(
-        anchor_cam=reorder(o.anchor_cam, 0),
-        target_cam=reorder(o.target_cam, 0),
-        landmark=reorder(o.landmark, 0),
-        aux=aux2,
-        valid=reorder(o.valid, 0),
-    )
-    return problem._replace(obs=obs2), iog, gcnt
-
-
-def make_batched_fns(model: str, images_flat: jax.Array, H: int, W: int,
-                     img_of_group, group_counts):
-    """Kernel-sampled batched ``(residual_fn, rj_fn)`` (both ``.batched``).
-
-    Drop-in for the vmapped per-observation functions in the LM solvers;
-    the problem's observations must be in ``imagesort_problem`` order.
-    Sampling runs through the Pallas patch kernel (VMEM-staged images, no
-    HBM gathers — measured 1.4-1.5x over the XLA gather sampler at EuRoC
-    density, more at production density); the warp chain and the Jacobian
-    assembly mirror ``make_rj_fn`` exactly.
-
-    NOTE the returned closures capture the (large) padded image stack; use
-    them only at a top-level jit boundary, or prefer
-    ``make_kernel_fused_solver``, which threads the images through as an
-    argument so they do not inline as an HLO constant.
-    """
-    from photometric_bundle_adjustment_tpu.ops import patch_sample as ps
-
-    images3d = images_flat.reshape(-1, H, W)
-    images_pad, HW = ps.pad_images(images3d)
-    return batched_fns_padded(
-        model, images_pad, HW, img_of_group, group_counts
-    )
-
-
-def batched_fns_padded(model: str, images_pad, HW, img_of_group,
-                       group_counts):
-    """``make_batched_fns`` taking the ``pad_images``-padded stack directly
-    (may be a tracer — the form to use inside an outer jit)."""
-    from photometric_bundle_adjustment_tpu.ops import patch_sample as ps
-
-    iog = jnp.asarray(np.asarray(img_of_group), jnp.int32) \
-        if not isinstance(img_of_group, jax.Array) else img_of_group
-    gcnt = jnp.asarray(np.asarray(group_counts), jnp.int32) \
-        if not isinstance(group_counts, jax.Array) else group_counts
-    Og = int(iog.shape[0]) * ps.GROUP
-    offsets = jnp.asarray(PATCH_OFFSETS)
-
-    def warp_terms(cam_a, cam_c, rho, aux):
-        dtype = rho.dtype
-        offs = offsets.astype(dtype)
-        uv_patch = aux.uv_ref[None, :] + offs                     # (P, 2)
-        d = cameras.unproject_unit(model, aux.intr_ref, uv_patch)
-        # RAY-form warp q = M d + rho u (see geometric_ba.make_residual_fn)
-        Ra = se3.quat_to_matrix(se3.rotation(cam_a.pose))
-        Rc = se3.quat_to_matrix(se3.rotation(cam_c.pose))
-        M = Rc.T @ Ra
-        u = Rc.T @ (se3.translation(cam_a.pose)
-                    - se3.translation(cam_c.pose))
-        q = d @ M.T + rho * u
-
-        def pi(p):
-            return cameras.project(model, aux.intr_target, p)
-
-        uv_t = pi(q)
-        Jpi = jax.vmap(jax.jacfwd(pi))(q)                          # (P, 2, 3)
-        eye = jnp.eye(3, dtype=dtype)
-        hat_d = se3.hat_so3(d)
-        hat_q = se3.hat_so3(q)
-        Mb = jnp.broadcast_to(rho * M, (PATCH_SIZE, 3, 3))
-        dpc = jnp.concatenate(
-            [
-                Mb,
-                -jnp.einsum("ij,pjk->pik", M, hat_d),
-                -jnp.broadcast_to(rho * eye, (PATCH_SIZE, 3, 3)),
-                hat_q,
-                jnp.broadcast_to(u, (PATCH_SIZE, 3))[:, :, None],
-            ],
-            axis=2,
-        )                                                          # (P, 3, 13)
-        return uv_t, Jpi, dpc
-
-    def uv_only(cam_a, cam_c, rho, aux):
-        offs = offsets.astype(rho.dtype)
-        uv_patch = aux.uv_ref[None, :] + offs
-        dirs = cameras.unproject_unit(model, aux.intr_ref, uv_patch)
-        Ra = se3.quat_to_matrix(se3.rotation(cam_a.pose))
-        Rc = se3.quat_to_matrix(se3.rotation(cam_c.pose))
-        u = Rc.T @ (se3.translation(cam_a.pose)
-                    - se3.translation(cam_c.pose))
-        q = dirs @ (Rc.T @ Ra).T + rho * u
-        return cameras.project(model, aux.intr_target, q)
-
-    def sample(uv_t, want_grads: bool):
-        """uv_t (O', P, 2) -> (I_t, gx, gy) each (O', P); rows >= Og zero."""
-        Opr = uv_t.shape[0]
-        # non-finite projections (behind-camera padding rows) sample a
-        # far-out-of-image point: clamped value, zero gradient
-        uv = jnp.where(jnp.isfinite(uv_t), uv_t, -1e6)
-        ux = uv[:Og, :, 0].T
-        uy = uv[:Og, :, 1].T
-        val, gx, gy = ps.sample_patches_grouped(
-            images_pad, ux, uy, iog, gcnt, HW=HW, want_grads=want_grads
-        )
-
-        def back(a):
-            a = a.T
-            if Opr > Og:
-                a = jnp.concatenate(
-                    [a, jnp.zeros((Opr - Og, PATCH_SIZE), a.dtype)]
-                )
-            return a
-
-        # non-finite projections poison the sampled value (NaN residual ->
-        # the LM accept check rejects the step), matching the gather path;
-        # gradients stay zero
-        finite = jnp.all(jnp.isfinite(uv_t), axis=-1)        # (O', P)
-        val = jnp.where(finite, back(val), jnp.nan)
-        return val, back(gx), back(gy)
-
-    def combine_r(I_t, ca, cc, aux):
-        a_r, b_r = ca.affine[0], ca.affine[1]
-        a_t, b_t = cc.affine[0], cc.affine[1]
-        return (I_t - b_t) - jnp.exp(a_t - a_r) * (aux.ref_patch - b_r)
-
-    def combine_rj(I_t, gx, gy, Jpi, dpc, ca, cc, aux):
-        dtype = I_t.dtype
-        a_r, b_r = ca.affine[0], ca.affine[1]
-        a_t, b_t = cc.affine[0], cc.affine[1]
-        e = jnp.exp(a_t - a_r)
-        ref_term = aux.ref_patch - b_r
-        r = (I_t - b_t) - e * ref_term
-        g = jnp.stack([gx, gy], axis=-1)
-        dIdy = jnp.einsum("pi,pij->pj", g, Jpi)
-        J_geo = jnp.einsum("pj,pjk->pk", dIdy, dpc)
-        ones = jnp.ones((PATCH_SIZE,), dtype)
-        Ja_aff = jnp.stack([e * ref_term, e * ones], axis=-1)
-        Jc_aff = jnp.stack([-e * ref_term, -ones], axis=-1)
-        J = jnp.concatenate(
-            [
-                J_geo[:, 0:6], Ja_aff,
-                J_geo[:, 6:12], Jc_aff,
-                J_geo[:, 12:13],
-            ],
-            axis=1,
-        )
-        return r, J
-
-    def rj_batch(cam_a, cam_c, rho, aux):
-        uv_t, Jpi, dpc = jax.vmap(warp_terms)(cam_a, cam_c, rho, aux)
-        I_t, gx, gy = sample(uv_t, True)
-        return jax.vmap(combine_rj)(I_t, gx, gy, Jpi, dpc, cam_a, cam_c, aux)
-
-    rj_batch.batched = True
-
-    def res_batch(cam_a, cam_c, rho, aux):
-        uv_t = jax.vmap(uv_only)(cam_a, cam_c, rho, aux)
-        I_t, _, _ = sample(uv_t, False)
-        return jax.vmap(combine_r)(I_t, cam_a, cam_c, aux)
-
-    res_batch.batched = True
-    return res_batch, rj_batch
-
-
-def make_kernel_dense_solver(model: str, images_flat: jax.Array,
-                             H: int, W: int, problem_slot: "ba.BAProblem",
-                             n_images: int):
-    """Fused dense-assembly solver (optim.fused build_dense, slot-major
-    landmark-dense layout) whose image sampling runs through the Pallas
-    patch kernel — the fastest photometric path on TPU.
-
-    ``problem_slot`` must be the slot-major problem from
-    ``fused.densify_problem``; pass the matching DenseLmSchurPlan to
-    ``solve``.  The kernel needs observations grouped by target image
-    (VMEM staging), the dense assembly needs them slot-major; the two
-    orders are bridged by two static permutations applied around the
-    sampler only (row gathers of (O, 8) arrays, ~0.1 ms each — measured
-    at EuRoC scale: kernel sampling 6.3 ms vs 14.5 ms XLA gathers, full
-    build+solve 20.2 -> 17.3 ms; with cfg.cost_from_build the separate
-    7.2 ms accept/reject residual pass also disappears).
-
-    The padded image stack is threaded through the jit boundary as an
-    ARGUMENT (a closure capture would inline ~hundreds of MB of pixels as
-    an HLO constant into every compile)."""
-    import functools
-
-    from photometric_bundle_adjustment_tpu.optim import fused
-    from photometric_bundle_adjustment_tpu.ops import patch_sample as ps
-
-    images3d = images_flat.reshape(-1, H, W)
-    images_pad, HW = ps.pad_images(images3d)
-
-    # host: group layout over the slot-major rows + inverse map
-    timg_slot = np.asarray(problem_slot.obs.aux.target_img)
-    Os = timg_slot.shape[0]
-    order, iog, gcnt = ps.group_layout(timg_slot, n_images)
-    take_g = np.where(order >= 0, order, 0)          # group row -> slot row
-    g_of_s = np.zeros(Os, np.int64)
-    g_of_s[order[order >= 0]] = np.flatnonzero(order >= 0)
-    take_g = jnp.asarray(take_g.astype(np.int32))
-    g_of_s = jnp.asarray(g_of_s.astype(np.int32))
-    iog_j = jnp.asarray(iog)
-    gcnt_j = jnp.asarray(gcnt)
-    offsets = jnp.asarray(PATCH_OFFSETS)
-
-    def make_rj_res(img_arg):
-        # Every array crossing the vmap/pallas_call stage boundaries is
-        # kept 2-D (obs axis major, one flat feature axis minor): the 3-D/
-        # 4-D per-observation forms ((O, 8, 2, 3) Jpi, (O, 8, 3, 13) dpc)
-        # materialise at (8, 128)-tile-padded layouts across the kernel
-        # boundary — ~1 GB of physical traffic at 29k observations.
-        # Reshapes back to the natural shapes happen INSIDE the vmapped
-        # bodies, where they are free.
-        def warp_terms(cam_a, cam_c, rho, aux):
-            dtype = rho.dtype
-            offs = offsets.astype(dtype)
-            uv_patch = aux.uv_ref[None, :] + offs                 # (P, 2)
-            d = cameras.unproject_unit(model, aux.intr_ref, uv_patch)
-            # RAY-form warp (see geometric_ba.make_residual_fn)
-            Ra = se3.quat_to_matrix(se3.rotation(cam_a.pose))
-            Rc = se3.quat_to_matrix(se3.rotation(cam_c.pose))
-            M = Rc.T @ Ra
-            u = Rc.T @ (se3.translation(cam_a.pose)
-                        - se3.translation(cam_c.pose))
-            q = d @ M.T + rho * u
-
-            def pi(p):
-                return cameras.project(model, aux.intr_target, p)
-
-            uv_t = pi(q)
-            Jpi = jax.vmap(jax.jacfwd(pi))(q)                     # (P, 2, 3)
-            eye = jnp.eye(3, dtype=dtype)
-            hat_d = se3.hat_so3(d)
-            hat_q = se3.hat_so3(q)
-            Mb = jnp.broadcast_to(rho * M, (PATCH_SIZE, 3, 3))
-            dpc = jnp.concatenate(
-                [
-                    Mb,
-                    -jnp.einsum("ij,pjk->pik", M, hat_d),
-                    -jnp.broadcast_to(rho * eye, (PATCH_SIZE, 3, 3)),
-                    hat_q,
-                    jnp.broadcast_to(u, (PATCH_SIZE, 3))[:, :, None],
-                ],
-                axis=2,
-            )                                                     # (P, 3, 13)
-            return (uv_t[:, 0], uv_t[:, 1],
-                    Jpi.reshape(-1), dpc.reshape(-1))
-
-        def uv_only(cam_a, cam_c, rho, aux):
-            offs = offsets.astype(rho.dtype)
-            uv_patch = aux.uv_ref[None, :] + offs
-            dirs = cameras.unproject_unit(model, aux.intr_ref, uv_patch)
-            Ra = se3.quat_to_matrix(se3.rotation(cam_a.pose))
-            Rc = se3.quat_to_matrix(se3.rotation(cam_c.pose))
-            u = Rc.T @ (se3.translation(cam_a.pose)
-                        - se3.translation(cam_c.pose))
-            q = dirs @ (Rc.T @ Ra).T + rho * u
-            uv_t = cameras.project(model, aux.intr_target, q)
-            return uv_t[:, 0], uv_t[:, 1]
-
-        def sample(uvx, uvy, want_grads: bool):
-            """uvx/uvy (O', P) slot-major -> (I_t, gx, gy) each (O', P)."""
-            Opr = uvx.shape[0]
-            finite = jnp.isfinite(uvx) & jnp.isfinite(uvy)        # (O', P)
-            sx = jnp.where(finite, uvx, -1e6)
-            sy = jnp.where(finite, uvy, -1e6)
-            # slot-major -> group order ((O', P) row gathers, ~0.1 ms)
-            ux = sx[:Os][take_g].T                                # (P, Og)
-            uy = sy[:Os][take_g].T
-            val, gx, gy = ps.sample_patches_grouped(
-                img_arg, ux, uy, iog_j, gcnt_j, HW=HW,
-                want_grads=want_grads,
-            )
-
-            def back(a):
-                a = a.T[g_of_s]                                   # (Os, P)
-                if Opr > Os:
-                    a = jnp.concatenate(
-                        [a, jnp.zeros((Opr - Os, PATCH_SIZE), a.dtype)]
-                    )
-                return a
-
-            # non-finite projections poison the sampled value (NaN residual
-            # -> the LM accept check rejects the step), matching the gather
-            # path; gradients stay zero
-            val = jnp.where(finite, back(val), jnp.nan)
-            return val, back(gx), back(gy)
-
-        def combine_r(I_t, ca, cc, aux):
-            a_r, b_r = ca.affine[0], ca.affine[1]
-            a_t, b_t = cc.affine[0], cc.affine[1]
-            return (I_t - b_t) - jnp.exp(a_t - a_r) * (aux.ref_patch - b_r)
-
-        def combine_rj(I_t, gx, gy, JpiF, dpcF, ca, cc, aux):
-            dtype = I_t.dtype
-            Jpi = JpiF.reshape(PATCH_SIZE, 2, 3)
-            dpc = dpcF.reshape(PATCH_SIZE, 3, 13)
-            a_r, b_r = ca.affine[0], ca.affine[1]
-            a_t, b_t = cc.affine[0], cc.affine[1]
-            e = jnp.exp(a_t - a_r)
-            ref_term = aux.ref_patch - b_r
-            r = (I_t - b_t) - e * ref_term
-            g = jnp.stack([gx, gy], axis=-1)
-            dIdy = jnp.einsum("pi,pij->pj", g, Jpi)
-            J_geo = jnp.einsum("pj,pjk->pk", dIdy, dpc)
-            ones = jnp.ones((PATCH_SIZE,), dtype)
-            Ja_aff = jnp.stack([e * ref_term, e * ones], axis=-1)
-            Jc_aff = jnp.stack([-e * ref_term, -ones], axis=-1)
-            J = jnp.concatenate(
-                [
-                    J_geo[:, 0:6], Ja_aff,
-                    J_geo[:, 6:12], Jc_aff,
-                    J_geo[:, 12:13],
-                ],
-                axis=1,
-            )
-            # flat (R*(2C+1),) rows: the dense build consumes 2-D Jacobians
-            return r, J.reshape(-1)
-
-        def rj_batch(cam_a, cam_c, rho, aux):
-            uvx, uvy, JpiF, dpcF = jax.vmap(warp_terms)(
-                cam_a, cam_c, rho, aux
-            )
-            I_t, gx, gy = sample(uvx, uvy, True)
-            return jax.vmap(combine_rj)(
-                I_t, gx, gy, JpiF, dpcF, cam_a, cam_c, aux
-            )
-
-        rj_batch.batched = True
-
-        def res_batch(cam_a, cam_c, rho, aux):
-            uvx, uvy = jax.vmap(uv_only)(cam_a, cam_c, rho, aux)
-            I_t, _, _ = sample(uvx, uvy, False)
-            return jax.vmap(combine_r)(I_t, cam_a, cam_c, aux)
-
-        res_batch.batched = True
-        return res_batch, rj_batch
-
-    def _make_inner(img_arg):
-        res_b, rj_b = make_rj_res(img_arg)
-        return fused.make_fused_ba_solver(res_b, cam_retract, 8, rj_fn=rj_b)
-
-    @functools.partial(jax.jit, static_argnames=("cfg",))
-    def _solve(img_arg, problem, plan, cfg):
-        return _make_inner(img_arg)(problem, plan, cfg)
-
-    @functools.partial(jax.jit, static_argnames=("cfg",))
-    def _build(img_arg, problem, plan, cfg):
-        return _make_inner(img_arg).build(problem, plan, cfg)
-
-    @functools.partial(jax.jit, static_argnames=("cfg",))
-    def _solve_lam(img_arg, neq, plan, lam, free, cfg):
-        return _make_inner(img_arg).solve_lam(neq, plan, lam, free, cfg)
-
-    def solve(problem, plan, cfg=ba.BAConfig()):
-        return _solve(images_pad, problem, plan, cfg)
-
-    solve.build = lambda problem, plan, cfg: _build(
-        images_pad, problem, plan, cfg
-    )
-    solve.solve_lam = lambda neq, plan, lam, free, cfg: _solve_lam(
-        images_pad, neq, plan, lam, free, cfg
-    )
-    solve.images_pad = images_pad
-    solve.HW = HW
-    solve.make_inner = _make_inner
-    solve.make_fns = make_rj_res      # (res_batch, rj_batch) for profiling
-    return solve
-
-
-def make_kernel_fused_solver(model: str, images_flat: jax.Array,
-                             H: int, W: int, img_of_group, group_counts):
-    """Fused-assembly solver whose sampling runs through the Pallas patch
-    kernel; solve problems produced by ``imagesort_problem``.
-
-    WHEN TO USE: the kernel samples 1.4-1.5x faster than the XLA gather
-    path in isolation, but its group layout pads the observation axis to
-    per-image multiples of 128, and the warp chain + normal-equation
-    assembly then run on the padded rows too.  Measured at EuRoC density
-    (~150 obs/image, 1.66x padding) the full LM iteration is ~8% SLOWER
-    than the gather path (19.0 vs 17.5 ms); the crossover is around
-    ~400 obs/image (padding < 1.2x), beyond which this solver wins and
-    approaches a ~1.3x end-to-end advantage at dense production maps.
-    Pick per problem density; the default pipeline uses the gather path.
-
-    The padded image stack is threaded through the jit boundary as an
-    ARGUMENT (a closure capture would inline ~hundreds of MB of pixels as
-    an HLO constant into every compile)."""
-    import functools
-
-    from photometric_bundle_adjustment_tpu.optim import fused
-    from photometric_bundle_adjustment_tpu.ops import patch_sample as ps
-
-    images3d = images_flat.reshape(-1, H, W)
-    images_pad, HW = ps.pad_images(images3d)
-    iog = jnp.asarray(np.asarray(img_of_group), jnp.int32)
-    gcnt = jnp.asarray(np.asarray(group_counts), jnp.int32)
-
-    def _make_inner(img_arg):
-        res_b, rj_b = batched_fns_padded(model, img_arg, HW, iog, gcnt)
-        return fused.make_fused_ba_solver(res_b, cam_retract, 8, rj_fn=rj_b)
-
-    @functools.partial(jax.jit, static_argnames=("cfg",))
-    def _solve(img_arg, problem, plan, cfg):
-        return _make_inner(img_arg)(problem, plan, cfg)
-
-    @functools.partial(jax.jit, static_argnames=("cfg",))
-    def _build(img_arg, problem, plan, cfg):
-        return _make_inner(img_arg).build(problem, plan, cfg)
-
-    @functools.partial(jax.jit, static_argnames=("cfg",))
-    def _solve_lam(img_arg, neq, plan, lam, free, cfg):
-        return _make_inner(img_arg).solve_lam(neq, plan, lam, free, cfg)
-
-    def solve(problem, plan, cfg=ba.BAConfig()):
-        return _solve(images_pad, problem, plan, cfg)
-
-    solve.build = lambda problem, plan, cfg: _build(
-        images_pad, problem, plan, cfg
-    )
-    solve.solve_lam = lambda neq, plan, lam, free, cfg: _solve_lam(
-        images_pad, neq, plan, lam, free, cfg
-    )
-    solve.images_pad = images_pad
-    solve.HW = HW
-    solve.make_inner = _make_inner
-    return solve

@@ -1,6 +1,6 @@
 // Native union-find for feature-track building.
 //
-// TPU-native framework's host-side runtime component: the transitive
+// the framework's host-side runtime component: the transitive
 // closure of pairwise matches (the reference's TrackBuilder + UnionFind,
 // include/visnav/tracks.h:53-172, union_find.h) is O(edges alpha(n))
 // pointer chasing — no flops, wrong shape for the chip, and too slow in

@@ -1,15 +1,12 @@
 """Plane-layout geometric-BA build: warp + projection Jacobians + Huber +
 per-observation Schur payloads, all as (rows, O) slabs.
 
-Round-3 left geometric BA at 287 it/s (3.5 ms/iteration) with a flat
-~60-op XLA profile: the per-observation rj path (models/geometric_ba.
-make_rj_fn) vmaps tiny (3, 13)/(2, 13) chain matrices whose 13-wide
-trailing dims are lane-hostile on TPU — the same fragmentation that
-capped the round-3 photometric build.  This module re-derives the SAME
-residual/Jacobian (golden-tested against optim/fused's build) in the
-photometric megakernel's phase-1 style (ops/pba_mega.warp_slabs,
-core/camera_slab): every quantity lives as a plane slab with the
-observation axis in lanes, one 2-D transpose bridges to row-major for the
+The per-observation rj path (models/geometric_ba.make_rj_fn) vmaps tiny
+(3, 13)/(2, 13) chain matrices whose 13-wide trailing dims fragment into
+padded tiles.  This module re-derives the SAME residual/Jacobian
+(golden-tested against optim/fused's build) in plane layout
+(core/camera_slab): every quantity lives as a plane slab with the
+observation axis contiguous, one 2-D transpose bridges to row-major for the
 chunk-plan assembly, and the per-observation Schur payloads A0 = J^T J_rho
 / A1 = J^T r are formed in plane layout so the assembly needs no J-column
 passes.
@@ -30,7 +27,7 @@ Output packing (one (O+1, 55) row-major array; columns):
 The trailing zero row is the chunk plans' dummy gather target.
 
 Solve path: the normal-equation tuple matches optim/fused.py build_chunk,
-so ``pba_mega.solve_lam`` (dense Cholesky on the reduced camera system +
+so ``camera_slab.solve_lam`` (dense Cholesky on the reduced camera system +
 back-substitution) applies unchanged with C = 6.
 """
 
@@ -49,7 +46,6 @@ from photometric_bundle_adjustment_tpu.optim.schur_plan import (
     SchurPlan,
     build_schur_plan,
 )
-from photometric_bundle_adjustment_tpu.ops import pba_mega
 
 C = 6   # camera tangent dim (se3 only; no affine brightness)
 W = 13  # [se3_a(6), se3_c(6), rho]
@@ -94,16 +90,14 @@ def build_geo_plan(problem: ba.BAProblem, **kwargs) -> SchurPlan:
 def _warp_geo(model: str, cam_states, inv_depth, consts, slots=None):
     """Plane-layout warp + projection + Jacobian coefficient slabs.
 
-    Same ray-form chain as pba_mega.warp_slabs with a single center pixel
-    (P = 1); returns (ux, uy, GA, GB) with GA/GB the (13, O) slabs
+    Ray-form warp chain for a single center pixel; returns (ux, uy, GA, GB) with GA/GB the (13, O) slabs
     dpi_{u,v}/dtheta.  Projections are NOT finite-masked: parity with the
     vmapped rj path (optim/fused._scaled_jacobians) requires the raw
     values to flow into the residual.
 
     ``slots``: when the observation rows are slot-major landmark-dense
     (row s*L + l belongs to landmark l), pass S — the landmark-state
-    lookup becomes a broadcast instead of a gather (the 1-D gather
-    XLA emits for it otherwise costs ~0.35 ms at 49k observations)."""
+    lookup becomes a broadcast instead of a 1-D gather)."""
     poses = cam_states                                  # (K, 7) for the
     #                                                     geometric problem
     pa = poses[consts["an"]]                            # (O, 7)
@@ -114,11 +108,9 @@ def _warp_geo(model: str, cam_states, inv_depth, consts, slots=None):
             inv_depth[None, :], (slots, L)
         ).reshape(1, slots * L)                         # (1, O)
     else:
-        rho = pba_mega._state_row_gather(
-            inv_depth, consts["lm"]
-        )[None, :]                                      # (1, O)
-    Ra = pba_mega._rot_planes(pa[:, 3:7])
-    Rc = pba_mega._rot_planes(pc[:, 3:7])
+        rho = inv_depth[consts["lm"]][None, :]         # (1, O)
+    Ra = camera_slab.rot_planes(pa[:, 3:7])
+    Rc = camera_slab.rot_planes(pc[:, 3:7])
     M = [[sum(Rc[i][j] * Ra[i][c_] for i in range(3))[None, :]
           for c_ in range(3)] for j in range(3)]
     dt = [pa[:, i] - pc[:, i] for i in range(3)]
@@ -269,8 +261,8 @@ def build_geo_dense(model: str, problem: ba.BAProblem, consts, plan,
                     cfg: ba.BAConfig):
     """Slot-major dense assembly (fused.densify_problem layout): every
     landmark reduction is a reshape + sum over the slot axis, g_c is two
-    one-hot matmuls — the assembly formulation the round-3 bench measured
-    at ~0.2 ms vs ~1.8 ms for the chunk plans on uniform problems.
+    one-hot matmuls — on uniform problems a much cheaper assembly than the
+    chunk plans.
     ``plan`` is the DenseLmSchurPlan; ``consts`` must be built from the
     DENSIFIED problem so plane columns are already slot-ordered."""
     K = jax.tree_util.tree_leaves(problem.cam_states)[0].shape[0]
@@ -306,7 +298,7 @@ def build_geo_dense(model: str, problem: ba.BAProblem, consts, plan,
 
     # camera-indexed lifts as compare+multiply+reduce (not one-hot
     # matmuls): XLA fuses the one-hot generation into the reduction and
-    # never writes the (O, K)/(S, L, K) lift slabs to HBM; exact f32
+    # never writes the (O, K)/(S, L, K) lift slabs to device memory; exact f32
     # (see optim/fused.py build_dense, same rewrite)
     iot = jnp.arange(K, dtype=jnp.int32)
     man = (jnp.asarray(plan.obs_anchor_cam)[:, None] == iot).astype(dtype)
@@ -330,13 +322,11 @@ def build_geo_dense(model: str, problem: ba.BAProblem, consts, plan,
 
 def build_geo_dense2(model: str, problem: ba.BAProblem, consts, plan,
                      cfg: ba.BAConfig):
-    """Round-5 plane-native dense assembly: every reduction consumes the
-    (55, O) payload plane DIRECTLY (no (O+1, 55) transpose+pad copy — the
-    round-4 marginal-cost profile measured that pad alone at ~0.16 ms and
-    the row-major detour's share of the build at ~0.5 ms):
+    """Plane-native dense assembly: every reduction consumes the (55, O)
+    payload plane DIRECTLY (no (O+1, 55) transpose+pad copy):
 
       * only the 26 Jacobian rows are transposed (for the camera-pair Gram
-        gather, which must gather along observations = sublanes there);
+        gather, which must gather along observations);
         dummy chunk slots are handled by a static mask instead of a padded
         zero row,
       * landmark reductions are (rows, S, L) reshapes + sums over the slot
@@ -344,8 +334,8 @@ def build_geo_dense2(model: str, problem: ba.BAProblem, consts, plan,
       * the Schur coupling is built TRANSPOSED, ``Ms_p (K*C, L)``, and
         pre-scaled by sqrt(inv0) during the lift — the gram
         S_corr0 = Ms_p @ Ms_p^T needs no separate (L, K*C) weighted copy
-        (the round-4 ``Mw = M * inv0`` materialisation, ~39 MB of HBM
-        traffic/iteration),
+        (a ``Mw = M * inv0`` materialisation would cost ~39 MB of device
+        memory traffic per iteration),
       * g_c target/anchor contributions ride the same compare-reduce lifts.
 
     Requires ``consts`` to carry the clamped pair-gather table ``pgc`` and
@@ -373,9 +363,8 @@ def build_geo_dense2(model: str, problem: ba.BAProblem, consts, plan,
     ).reshape(-1, C * C)
     # COMPONENT-MAJOR reduced-system ordering (row r = c*K + k): the
     # camera-major (K, C, K, C) block transpose puts C = 6 in the minor
-    # LANES (21x tile padding — measured 0.35 ms of pure relayout); with
-    # components major the intermediate is (C, K, C, K) whose minor dims
-    # (C sublanes, K lanes) pad only ~1.7x.  The ordering is internal to
+    # dimension; with components major the intermediate is (C, K, C, K),
+    # whose minor dimension is K.  The ordering is internal to
     # this build + solve_lam2 (the delta reshapes back to (K, C)).
     H_cc = (
         jnp.zeros((K * K + 1, C * C), dtype)
@@ -399,13 +388,12 @@ def build_geo_dense2(model: str, problem: ba.BAProblem, consts, plan,
     s = jnp.sqrt(inv0)                                  # (L,)
 
     # camera lifts as compare+multiply+reduce (fused one-hot; exact f32 —
-    # einsum would lower these as matmuls whose 3/6-pass bf16 emulation
-    # both costs passes and rounds, see optim/fused.py build_dense).
+    # einsum would lower these as matmuls, see optim/fused.py build_dense).
     # Padding slots carry camera id K, matching no iota row.  The anchor
     # contribution rides as one EXTRA virtual slot (consts["lm_cam_ext"]
     # stacks anchor_cam_of_lm under lm_cam) so the reduce lands directly
-    # in the 2-D (C*K, L) layout — the separate 3-D sum + anchor add +
-    # reshape materialized the 39 MB coupling twice (~0.2 ms).
+    # in the 2-D (C*K, L) layout — a separate 3-D sum + anchor add +
+    # reshape would materialize the 39 MB coupling twice.
     iot = jnp.arange(K, dtype=jnp.int32)
     msk = (consts["lm_cam_ext"][None] == iot[:, None, None]
            ).astype(dtype)                              # (K, S+1, L)
@@ -465,18 +453,18 @@ def make_geo_solver(model: str, problem: ba.BAProblem,
     With ``plan_slot`` (a DenseLmSchurPlan; ``problem`` must be the
     matching densify_problem output): slot-major dense assembly — the
     fastest formulation for near-uniform observation counts; ``v2``
-    (default) selects the round-5 plane-native assembly
+    (default) selects the plane-native assembly
     (:func:`build_geo_dense2`).  Without ``plan_slot``: chunk-plan
     assembly over the original ragged order.
 
     Returns ``solve(problem, cfg) -> (problem, BAResult)`` with
-    ``.build`` / ``.solve_lam`` exposed (pba_mega.solve_lam works for any
-    camera tangent width)."""
+    ``.build`` / ``.solve_lam`` exposed (camera_slab.solve_lam works for
+    any camera tangent width)."""
     import numpy as np
 
     from photometric_bundle_adjustment_tpu.models import geometric_ba
 
-    solve_lam_impl = pba_mega.solve_lam
+    solve_lam_impl = camera_slab.solve_lam
     if plan_slot is not None:
         cplan = plan_slot
         build_impl = build_geo_dense

@@ -1,6 +1,6 @@
 """Schur-complement bundle-adjustment solver (the SPARSE_SCHUR replacement).
 
-TPU-native re-design of the reference's Ceres BA configuration
+Batched re-design of the reference's Ceres BA configuration
 (include/visnav/map_utils.h:322-399: AutoDiffCostFunction<...,2,7,7,1,8>,
 HuberLoss, SPARSE_SCHUR, landmark blocks of dimension **1** because landmarks
 are anchored inverse depths).  Instead of a block-sparse matrix + generic
@@ -21,8 +21,8 @@ equations are assembled with scatter-adds; the Schur complement
 
     S = H_cc - H_cp diag(H_pp)^-1 H_pc
 
-is ONE dense matmul over the landmark axis — exactly the shape the MXU
-wants — and the reduced camera system (``6K x 6K`` with K at most a few
+is ONE dense matmul over the landmark axis — exactly the shape matrix
+units want — and the reduced camera system (``6K x 6K`` with K at most a few
 hundred) is solved by dense Cholesky on-chip.  The landmark axis is the
 data-parallel axis for multi-chip sharding (see
 ``photometric_bundle_adjustment_tpu.parallel``): each device computes the
@@ -71,8 +71,8 @@ class BAConfig(NamedTuple):
     max_retries: int = 6              # lambda escalations per iteration
     min_inv_depth_hessian: float = 1e-12
     # precision of the Schur-correction Gram matmul S_corr0 = Mw^T M in the
-    # fused dense build ("highest" = 6-pass f32 emulation, "high" = 3-pass
-    # bf16x3).  Everything else stays pinned at float32/HIGHEST.
+    # fused dense build ("highest" = full f32, "high" = TF32 on the GPU).
+    # Everything else stays pinned at float32/HIGHEST.
     schur_matmul_precision: str = "highest"
     # skip the dense S_corr0 = Mw^T M Gram matmul in the fused builds: the
     # camera-partitioned distributed solve (parallel.dist_fused) applies
@@ -85,15 +85,9 @@ class BAConfig(NamedTuple):
     # the build's cost doubles as the accept/reject check and its normal
     # equations are reused for the next iteration on acceptance.  Wins
     # when residual evaluation is a large fraction of a build (photometric
-    # BA: the residual re-samples every patch, 7.2 of a 16.6 ms build);
-    # loses on retry-heavy problems (a rejected try costs a full build).
+    # BA: the residual re-samples every patch); loses on retry-heavy
+    # problems (a rejected try costs a full build).
     cost_from_build: bool = False
-    # photometric megakernel (ops.pba_mega) only: sample image patches in
-    # bfloat16 — one MXU pass per body instead of the 3-pass f32 emulation.
-    # uint8 image intensities are EXACT in bf16; only the bilinear y-taps
-    # round (<=2^-8 relative), validated by kernel parity tests at a bf16
-    # tier and a full-map ATE run (VERDICT r3 #2).  f32 accumulation.
-    sample_bf16: bool = False
 
 
 class BAResult(NamedTuple):
@@ -217,9 +211,8 @@ def make_ba_step(
         wJp = Jp * w[:, None]
 
         # camera-camera blocks: ONE merged scatter of all 4 contributions
-        # per obs into (K^2, C^2) rows — ~4x faster on TPU than four
-        # separate (K, K, C, C) scatter-adds (measured: 17.2 -> 4.2 ms at
-        # O=49k, K=200)
+        # per obs into (K^2, C^2) rows instead of four separate
+        # (K, K, C, C) scatter-adds
         Haa = jnp.einsum("ori,orj->oij", wJa, Ja)
         Hac = jnp.einsum("ori,orj->oij", wJa, Jc)
         Hcc = jnp.einsum("ori,orj->oij", wJc, Jc)

@@ -8,10 +8,9 @@ normal-equation assembly uses the gather/Gram-chunk plans from
 uses a dense per-landmark coupling matrix M (L, K*C) built by one-hot
 camera lifting so
 
-  * the correction  S_corr0 = M^T diag(inv_hpp) M  is ONE MXU matmul and
-    the back-substitution is a matvec (no irregular gathers in the hot
-    loop — measured 3-4x faster on TPU v5e than the entry-pair
-    gather/scatter formulation this replaced),
+  * the correction  S_corr0 = M^T diag(inv_hpp) M  is ONE dense matmul
+    and the back-substitution is a matvec (no irregular gathers in the hot
+    loop),
   * the lambda dependence of the reduced system is analytic
     (S(lam) = H_cc + lam*diag - S_corr0 / (1 + lam)), so each LM retry costs
     one dense Cholesky of the (K*C, K*C) system instead of a rebuild,
@@ -19,14 +18,11 @@ camera lifting so
     flattened Jacobians, slot-major landmark reductions as reshapes, g_c
     as one-hot matmuls (see build_dense).
 
-Measured on TPU v5e at the reference-scale workload (200 cams, 8k landmarks,
-49k observations): 3.5 ms per LM step = 288 steps/s (history: scatter path
-15-16 ms, entry-pair 7.8 ms, dense one-hot lift 5.7 ms, + slot-major
-layout 3.9 ms, + bf16x3 Schur Gram 3.5 ms) — with matmul precision pinned
-to float32 (the TPU's default bf16-pass matmuls perturb the solve by
-~4e-2; pinned, it matches the f64 solution to ~1e-4, same as the CPU f32
-path; the optional bf16x3 S_corr0 Gram is separately validated, see
-build_dense).
+Matrix products run with precision pinned to float32 (utils/runtime): at
+reduced precision the reduced system's rounding moves the solve by ~1e-2,
+while pinned it matches the f64 solution to ~1e-4, like the CPU f32 path.
+The optional reduced-precision S_corr0 Gram is separately validated, see
+build_dense.
 
 This replaces the Ceres SPARSE_SCHUR configuration of the reference
 (include/visnav/map_utils.h:377-383) for the latency-critical single-chip
@@ -147,7 +143,7 @@ def make_fused_ba_solver(
 
     Dispatches on the plan type: a ``fused_host.HostSchurPlan`` routes to
     the CPU-optimal entry-pair solver, a ``SchurPlan`` to the dense
-    one-hot-lifting solver below (TPU-optimal).  ``.build``/``.solve_lam``
+    one-hot-lifting solver below (accelerators).  ``.build``/``.solve_lam``
     dispatch the same way.
     """
     from photometric_bundle_adjustment_tpu.optim import fused_host
@@ -196,9 +192,8 @@ def _make_dense_fused_ba_solver(
         The observation axis is padded by ONE trailing dummy row (valid=0)
         so every downstream payload carries its gather-plan zero row for
         free — plan gidx dummies already point at row O, and the padding
-        avoids a cascade of full-array ``concatenate`` copies that
-        dominated the assembly cost on TPU (zero-row concats of (O, .)
-        payloads are full HBM copies).
+        avoids a cascade of full-array ``concatenate`` copies (zero-row
+        concats of (O, .) payloads are full device-memory copies).
         """
         o = problem.obs
         # pad to the next multiple of 8 (>= O+1) to keep the obs axis
@@ -251,11 +246,10 @@ def _make_dense_fused_ba_solver(
     def _scaled_jacobians_flat(problem: ba.BAProblem, cfg: ba.BAConfig):
         """As ``_scaled_jacobians`` but with the Jacobian FLATTENED to 2-D
         (O+1', R*(2C+1)) — flattened inside the vmapped evaluation, so the
-        3-D (O, R, 2C+1) array never materialises.  On TPU the 3-D form's
-        (R, 2C+1) trailing dims are physically padded to an (8, 128) tile
-        (~10-80x the logical size for small R/C), and every consumer
-        re-reads that padding; the 2-D form pads only the single minor
-        dim.  This is the layout the dense build is built around.
+        3-D (O, R, 2C+1) array never materialises: small trailing dims
+        are padded in tiled layouts, and every consumer would re-read that
+        padding; the 2-D form pads only the single minor dim.  This is the
+        layout the dense build is built around.
         """
         o = problem.obs
         npad = 8 - (o.valid.shape[0] % 8)
@@ -305,16 +299,13 @@ def _make_dense_fused_ba_solver(
     def build_dense(problem: ba.BAProblem, plan: DenseLmSchurPlan,
                     cfg: ba.BAConfig):
         """Normal-equation assembly for the slot-major landmark-dense
-        layout — the TPU hot path.
+        layout — the accelerator path.
 
-        Layout rules (measured on v5e, see DenseLmSchurPlan): every
-        per-observation array is kept 2-D with the observation axis MAJOR
-        and a dense feature axis minor (J flattened to (O, R*(2C+1)));
-        landmark reductions are reshapes to (S, L, width) + sums over the
-        leading slot axis; g_c is two one-hot matmuls.  This build runs in
-        ~2.7 ms at 200 cams / 8k landmarks / 49k obs where the 3-D
-        (O, R, 2C+1) formulation took 4.9 ms — small trailing dims get
-        (8, 128)-tile padding and every re-read of them pays it.
+        Layout rules (see DenseLmSchurPlan): every per-observation array is
+        kept 2-D with the observation axis MAJOR and a dense feature axis
+        minor (J flattened to (O, R*(2C+1))); landmark reductions are
+        reshapes to (S, L, width) + sums over the leading slot axis; g_c
+        is two one-hot matmuls.
         """
         K = jax.tree_util.tree_leaves(problem.cam_states)[0].shape[0]
         L = problem.inv_depth.shape[0]
@@ -364,11 +355,9 @@ def _make_dense_fused_ba_solver(
         # lifts; express them as compare+multiply+reduce instead of
         # one-hot matmuls so XLA fuses the one-hot GENERATION into the
         # reduction kernel and never writes the (O, K) / (S, L, K) lift
-        # slabs to HBM (the plane-layout analysis, ops/geo_mega.py,
-        # showed the build bandwidth-bound exactly on those
-        # materialisations; f32-precision dots also tripled the matmul
-        # passes).  Padding rows carry camera id K, which matches no
-        # iota lane and vanishes — same as the zero one-hot row.
+        # slabs to device memory (the build is bandwidth-bound exactly on
+        # those materialisations).  Padding rows carry camera id K, which
+        # matches no iota lane and vanishes — same as the zero one-hot row.
         iot = jnp.arange(K, dtype=jnp.int32)
         Av = A1[: S_ * L]
         man = (plan.obs_anchor_cam[:, None] == iot).astype(dtype)
@@ -386,12 +375,12 @@ def _make_dense_fused_ba_solver(
         amsk = (plan.anchor_cam_of_lm[:, None] == iot).astype(dtype)
         M = (M + amsk[:, :, None] * anchor_v[:, None, :]).reshape(L, K * C)
 
-        # Schur correction and rhs correction as dense MXU products.  The
-        # big Gram matmul optionally runs at HIGH (bf16x3) precision —
-        # validated on a full 20-iteration solve to reproduce the HIGHEST
-        # trajectory (identical accept/reject decisions and iteration
-        # count; final pose params within 1.3e-5, inverse depths within
-        # 5e-7) while halving the matmul passes (~0.4 ms at bench scale).
+        # Schur correction and rhs correction as dense matrix products.
+        # The big Gram matmul optionally runs at HIGH precision (TF32 on
+        # the GPU) — validated on a full 20-iteration solve to reproduce
+        # the HIGHEST trajectory (identical accept/reject decisions and
+        # iteration count; final pose params within 1.3e-5, inverse
+        # depths within 5e-7).
         Mw = M * inv0[:, None]
         if cfg.skip_schur_gram:
             S_corr0 = None  # applied matrix-free by the partitioned solver
@@ -462,7 +451,7 @@ def _make_dense_fused_ba_solver(
         oh_a = jax.nn.one_hot(plan.anchor_cam_of_lm, K, dtype=dtype)  # (L, K)
         M = M + (oh_a[:, :, None] * anchor_v[:, None, :]).reshape(L, K * C)
 
-        # Schur correction and rhs correction as dense MXU products
+        # Schur correction and rhs correction as dense matrix products
         Mw = M * inv0[:, None]
         S_corr0 = None if cfg.skip_schur_gram else Mw.T @ M  # (K*C, K*C)
         rhs_corr0 = Mw.T @ g_p      # (K*C,)
@@ -519,7 +508,7 @@ def _make_dense_fused_ba_solver(
         at the trial point — the build's robust cost is the accept/reject
         check AND, on acceptance, its normal equations seed the next
         iteration.  No separate residual pass ever runs (for photometric
-        BA that pass re-samples every patch: 7.2 ms of a 24 ms iteration).
+        BA that pass re-samples every patch).
 
         Same accept criterion, lambda schedule (x10 per reject, /3 on
         accept), termination (max_retries consecutive rejects, lambda cap,

@@ -4,8 +4,7 @@ The entry-pair formulation assembles the Schur correction from per-landmark
 entry pairs with chunked gathers — the fastest formulation on host CPU
 (measured ~115 ms/LM-iteration at 200 cams / 8k landmarks / 49k obs vs
 ~297 ms for the scatter path and ~338 ms for the dense one-hot matmul
-formulation of ``optim.fused`` that wins on TPU, where irregular gathers
-are lane-hostile and MXU matmuls are nearly free).  ``optim.fused``
+formulation of ``optim.fused`` that the accelerators take).  ``optim.fused``
 dispatches here automatically when the default backend is CPU.
 
 Same API shape as ``optim.fused``: ``plan_for_problem`` ->

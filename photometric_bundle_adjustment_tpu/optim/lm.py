@@ -1,6 +1,6 @@
 """Damped Levenberg-Marquardt on product manifolds, fully jit-compiled.
 
-TPU-native replacement for the reference's use of Ceres autodiff NLLS with
+Batched replacement for the reference's use of Ceres autodiff NLLS with
 ``LocalParameterization`` (DENSE_QR / SPARSE_NORMAL_CHOLESKY configs:
 src/test_ceres_se3.cpp:69-76, src/calibration.cpp:410-418).  The Schur-
 complement BA solver for large problems lives in

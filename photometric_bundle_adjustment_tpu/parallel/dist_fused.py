@@ -19,7 +19,7 @@ Shards are **landmark-aligned**: a landmark's observations (and therefore
 its Schur entry pairs) always live on one device, assigned by balancing
 observation counts over contiguous landmark ranges.  This replaces the
 reference's shared-memory TBB/Ceres-threads parallelism
-(include/visnav/map_utils.h:377-383) with ICI-collective data parallelism.
+(include/visnav/map_utils.h:377-383) with collective-based data parallelism.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import functools
 from typing import NamedTuple
 
 import jax
+from jax import shard_map
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -286,17 +287,6 @@ def make_distributed_fused_solver(
     residual ``cg_tol``.  LM is robust to the slightly inexact step (the
     accept/reject check still guards every update).
     """
-    try:
-        from jax import shard_map as _sm
-
-        def shard_map(f, *, mesh, in_specs, out_specs, check_rep):
-            return _sm(
-                f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                check_vma=check_rep,
-            )
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     solver = fused.make_fused_ba_solver(
         residual_fn, cam_retract, cam_tangent_dim, rj_fn=rj_fn
     )
@@ -343,7 +333,7 @@ def make_distributed_fused_solver(
                 ba.BAResult(cost=P(), initial_cost=P(), iterations=P(),
                             lam=P(), cg_iterations=P()),
             ),
-            check_rep=False,
+            check_vma=False,
         )
         def run(problem, plans):
             prob, plan = local_views(problem, plans)

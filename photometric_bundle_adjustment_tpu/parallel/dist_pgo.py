@@ -2,7 +2,7 @@
 
 BASELINE config #5 names "distributed photometric BA + pose-graph over
 partitioned keyframe map blocks".  A pose graph has no landmarks, so the
-natural TPU decomposition is EDGE sharding — data parallelism over the
+natural decomposition is EDGE sharding — data parallelism over the
 relative-pose factors (the analog of observation sharding in BA, and of
 the reference's per-residual Ceres threading, map_utils.h:377-383):
 
@@ -32,6 +32,7 @@ import functools
 from typing import NamedTuple
 
 import jax
+from jax import shard_map
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -82,26 +83,13 @@ def prepare(graph: PoseGraph, mesh: Mesh) -> ShardedPoseGraph:
 def make_distributed_pgo(mesh: Mesh):
     """Returns solve(poses0 (K,7), sharded, fixed (K,) bool, cfg)
     -> (poses, (initial_cost, cost, iterations))."""
-    try:
-        from jax import shard_map as _sm
-
-        def shard_map(f, *, mesh, in_specs, out_specs):
-            return _sm(f, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_vma=False)
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map as _sme
-
-        def shard_map(f, *, mesh, in_specs, out_specs):
-            return _sme(f, mesh=mesh, in_specs=in_specs,
-                        out_specs=out_specs, check_rep=False)
-
     def solve(poses0, sharded: ShardedPoseGraph, fixed,
               cfg: LMConfig = LMConfig()):
         K = poses0.shape[0]
         dtype = poses0.dtype
 
         @functools.partial(
-            shard_map, mesh=mesh,
+            shard_map, mesh=mesh, check_vma=False,
             in_specs=(
                 P(),
                 jax.tree_util.tree_map(lambda _: P(DATA_AXIS),

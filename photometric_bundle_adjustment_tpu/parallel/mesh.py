@@ -1,10 +1,12 @@
 """Device-mesh helpers for the distribution layer.
 
 The reference has no distributed execution at all (SURVEY §2.3: TBB threads
-only); this module IS the "communication backend" of the TPU build: a
-1-D (or hosts x chips) ``jax.sharding.Mesh`` whose data axis shards the
+only); this module IS the "communication backend": a 1-D (or hosts x
+devices) ``jax.sharding.Mesh`` whose data axis shards the
 landmark/observation dimension of BA problems, with XLA inserting the
-ICI collectives (psum / reduce-scatter) for the reduced camera system.
+collectives (psum / reduce-scatter, NCCL on GPUs) for the reduced camera
+system.  The cards of one host are joined all to all, so the mesh follows
+the algorithm alone.
 """
 
 from __future__ import annotations
@@ -37,12 +39,12 @@ def initialize_multihost(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Join a multi-host run (SPMD over a pod slice).
+    """Join a multi-host run (SPMD over several hosts).
 
-    Wraps ``jax.distributed.initialize``; on TPU pods the arguments are
-    auto-detected from the environment.  After this, ``jax.devices()``
-    spans all hosts and ``make_mesh()`` builds a global mesh whose
-    collectives ride ICI within a host/slice and DCN across.
+    Wraps ``jax.distributed.initialize``; pass the coordinator address,
+    process count and id (nothing in the environment provides them).
+    After this, ``jax.devices()`` spans all hosts and ``make_mesh()``
+    builds a global mesh.
     """
     import jax
 
@@ -54,9 +56,9 @@ def initialize_multihost(
 
 
 def make_host_chip_mesh(hosts: int, chips_per_host: int) -> Mesh:
-    """2-D (host, chip) mesh: shard landmarks over chips within a host
-    (ICI) and keyframe blocks over hosts (DCN boundary) — SURVEY §7's
-    keyframe-block partitioning axis is the host axis."""
+    """2-D (host, chip) mesh: shard landmarks over the cards within a
+    host (NVLink) and keyframe blocks over hosts (network boundary) —
+    SURVEY §7's keyframe-block partitioning axis is the host axis."""
     devices = np.asarray(jax.devices()[: hosts * chips_per_host]).reshape(
         hosts, chips_per_host
     )

@@ -53,7 +53,7 @@ class SfmConfig:
     # outlier taxonomy and fatal to later PnP localisation.
     min_triangulation_angle_deg: float = 1.0
 
-    # vectorised-RANSAC sizing (TPU-side static shapes)
+    # vectorised-RANSAC sizing (device-side static shapes)
     max_matches_per_pair: int = 512
     ransac_hypotheses: int = 128
     pnp_hypotheses: int = 512   # 6-pt DLT needs many draws at 50% outliers

@@ -27,8 +27,9 @@ def _get_lib():
     src = os.path.join(
         os.path.dirname(os.path.dirname(__file__)), "native", "trackbuilder.cpp"
     )
-    cache = os.environ.get(
-        "PBA_TPU_NATIVE_CACHE", os.path.expanduser("~/.cache/pba_tpu_native")
+    cache = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), ".native_cache",
     )
     os.makedirs(cache, exist_ok=True)
     lib_path = os.path.join(cache, "trackbuilder.so")

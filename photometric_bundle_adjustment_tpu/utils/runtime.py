@@ -1,5 +1,5 @@
-"""Runtime utilities: persistent compilation cache, stage timers,
-profiling hooks, NaN canaries.
+"""Runtime utilities: persistent compilation cache and matmul precision,
+stage timers, profiling hooks, NaN canaries.
 
 The reference has no tracing/profiling at all (SURVEY §5) — console
 counters only.  Here: wall-clock stage timers (the counters the pipeline
@@ -17,20 +17,39 @@ import os
 import time
 
 
-def enable_compilation_cache(path: str | None = None) -> None:
-    """Persist XLA compilations across processes."""
+REPO_ROOT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+DEFAULT_CACHE_DIR = os.path.join(REPO_ROOT, ".jax_cache")
+
+
+def compilation_cache_dir() -> str:
+    """Where compiled executables persist: ``JAX_COMPILATION_CACHE_DIR``
+    as given when it is set, else a fixed directory inside the checkout
+    (the path is part of the cache key, so it must not move)."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_CACHE_DIR
+
+
+def configure_runtime() -> str:
+    """Process-wide JAX settings every entry point applies before its
+    first computation; returns the compilation cache directory.
+
+    * Persistent compilation cache.  JAX reads ``JAX_COMPILATION_CACHE_DIR``
+      itself, so the directory is only set here when that variable is not.
+    * float32 matrix products at full precision.  The one-hot lifts,
+      Gauss-Jordan steps and dense Cholesky assembly were validated at
+      f32; the GPU would otherwise run them in TF32.  A deliberate local
+      lowering stays explicit (``BAConfig.schur_matmul_precision``).
+    """
     import jax
 
-    path = path or os.environ.get(
-        "PBA_TPU_COMPILE_CACHE", os.path.expanduser("~/.cache/pba_tpu_xla")
-    )
-    # separate per backend: entries are keyed by platform, but mixing hosts
-    # with different CPU feature sets in one directory triggers SIGILL
-    # warnings when another process wrote incompatible CPU executables
-    path = os.path.join(path, jax.default_backend())
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    path = compilation_cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    jax.config.update("jax_default_matmul_precision", "float32")
+    return path
 
 
 def enable_nan_canary() -> None:

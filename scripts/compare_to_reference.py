@@ -1,4 +1,4 @@
-"""Compare our SfM map against the reference binary's map (VERDICT item 1).
+"""Compare our SfM map against the reference binary's map.
 
 The reference baseline is produced by refbaseline/ (the UNMODIFIED
 reference sfm compiled headless) and dumped to text by

@@ -1,11 +1,11 @@
-"""True multi-process distributed smoke test (VERDICT round-1 missing #5).
+"""True multi-process distributed smoke test.
 
 Launches N real OS processes that join one ``jax.distributed`` job over
 the CPU backend (each contributing fake devices), builds a GLOBAL mesh
 spanning both processes, and runs a full distributed fused-Schur LM solve
 whose psum / psum_scatter / all_gather collectives cross the process
-boundary — the same code path (`parallel.dist_fused`) that runs on a TPU
-pod via ICI/DCN.
+boundary — the same code path (`parallel.dist_fused`) that a multi-host
+GPU job runs over NCCL.
 
 Run directly (the parent re-execs itself as workers):
 

@@ -1,5 +1,4 @@
-"""Photometric-BA value curve: an init-degradation ladder (VERDICT r4
-weak #1 / next #3).
+"""Photometric-BA value curve: an init-degradation ladder.
 
 The flagship capability's accuracy claim rested on one favorable case
 (round 3: a 2.75 cm geometric init pulled to 1.69 cm).  This script
@@ -13,7 +12,7 @@ consistency metric (calibrated 0.1100 m).
 
 Usage:
     python scripts/pba_value_curve.py [--map runs/map_r5_run12.pkl]
-        [--rungs 0,0.02,0.05,0.10,0.20] [--bf16] [--out runs/value_curve.json]
+        [--rungs 0,0.02,0.05,0.10,0.20] [--out runs/value_curve.json]
 """
 
 import argparse
@@ -80,16 +79,15 @@ def main():
     ap.add_argument("--cam-calib",
                     default="refbaseline/artifacts/ref_opt_calib.json")
     ap.add_argument("--rungs", default="0,0.02,0.05,0.10,0.20")
-    ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--out", default="runs/value_curve.json")
     ap.add_argument("--cache-dir", default="runs/cache_r5")
     args = ap.parse_args()
 
     from photometric_bundle_adjustment_tpu.utils.runtime import (
-        enable_compilation_cache,
+        configure_runtime,
     )
 
-    enable_compilation_cache()
+    configure_runtime()
 
     from photometric_bundle_adjustment_tpu.io import calib_io, dataset
     from photometric_bundle_adjustment_tpu.pipeline import pba_refine
@@ -132,7 +130,6 @@ def main():
 
         res = pba_refine.refine_photometric(
             pipe, max_iterations=20, huber_delta=9.0,
-            sample_bf16=args.bf16,
         )
         ref_path = f"runs/vc_pba_{int(sigma * 1000)}mm.pkl"
         with open(ref_path, "wb") as f:
@@ -155,7 +152,7 @@ def main():
         print(json.dumps(row), flush=True)
 
     with open(args.out, "w") as f:
-        json.dump({"bf16": args.bf16, "map": args.map, "rows": rows}, f,
+        json.dump({"map": args.map, "rows": rows}, f,
                   indent=1)
     print(f"wrote {args.out}")
 

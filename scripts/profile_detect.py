@@ -1,4 +1,4 @@
-"""Dissect the detection+description batch (156 ms / 8 images on v5e)."""
+"""Dissect the detection+description batch (8 images) into its stages."""
 import time
 
 import jax
@@ -7,10 +7,10 @@ import numpy as np
 
 from photometric_bundle_adjustment_tpu.features import describe, detect
 from photometric_bundle_adjustment_tpu.utils.runtime import (
-    enable_compilation_cache,
+    configure_runtime,
 )
 
-enable_compilation_cache()
+configure_runtime()
 print("backend:", jax.default_backend())
 
 B, H, W, F = 8, 480, 752, 1500

@@ -10,10 +10,10 @@ from photometric_bundle_adjustment_tpu.features import p3p as p3p_mod
 from photometric_bundle_adjustment_tpu.features import ransac
 from photometric_bundle_adjustment_tpu.pipeline import sfm_pipeline as sp
 from photometric_bundle_adjustment_tpu.utils.runtime import (
-    enable_compilation_cache,
+    configure_runtime,
 )
 
-enable_compilation_cache()
+configure_runtime()
 print("backend:", jax.default_backend())
 
 M, HYP = 1024, 512

@@ -1,8 +1,7 @@
-"""Dissect the all-pairs matching chunk (the round-2 bench's 72.7 ms):
-time each sub-stage of make_pair_matcher at the exact bench shapes
+"""Dissect the all-pairs matching chunk: time each sub-stage of make_pair_matcher at the exact bench shapes
 (C=32 pairs, F=512 features, 128 hypotheses) to find where the time goes.
 
-Run on TPU (or CPU for the baseline breakdown).
+Run on the GPU (or CPU for the baseline breakdown).
 """
 import functools
 import time
@@ -15,10 +14,10 @@ from photometric_bundle_adjustment_tpu.features import (
     geometry, match, nister, pair_matching, ransac,
 )
 from photometric_bundle_adjustment_tpu.utils.runtime import (
-    enable_compilation_cache,
+    configure_runtime,
 )
 
-enable_compilation_cache()
+configure_runtime()
 print("backend:", jax.default_backend())
 
 I, F, C, MM, HYP = 164, 512, 32, 512, 128

@@ -1,10 +1,10 @@
 """Sub-profile five_point_candidates at RANSAC batch scale (4096 samples)."""
-import sys, time
-sys.path.insert(0, "/root/repo")
+import os, sys, time
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax, jax.numpy as jnp, numpy as np
 from photometric_bundle_adjustment_tpu.features import nister
-from photometric_bundle_adjustment_tpu.utils.runtime import enable_compilation_cache
-enable_compilation_cache()
+from photometric_bundle_adjustment_tpu.utils.runtime import configure_runtime
+configure_runtime()
 print("backend:", jax.default_backend())
 
 B = 4096

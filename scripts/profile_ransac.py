@@ -1,15 +1,15 @@
 """Split the matching-chunk device time: Hamming vs 5-point vs LM refine.
 
-The composite bench shows matching at 2.3 ms/pair on BOTH cpu and tpu —
-op-latency/serial-loop bound, not FLOP bound.  This isolates the pieces
+Matching may be op-latency/serial-loop bound rather than FLOP bound.
+This isolates the pieces
 at chunk scale (C=32 pairs, F=512 features, H=128 hypotheses).
 """
-import sys, time
-sys.path.insert(0, "/root/repo")
+import os, sys, time
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax, jax.numpy as jnp, numpy as np
 from photometric_bundle_adjustment_tpu.features import match, ransac, nister
-from photometric_bundle_adjustment_tpu.utils.runtime import enable_compilation_cache
-enable_compilation_cache()
+from photometric_bundle_adjustment_tpu.utils.runtime import configure_runtime
+configure_runtime()
 print("backend:", jax.default_backend())
 
 rng = np.random.default_rng(0)

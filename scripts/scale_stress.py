@@ -1,4 +1,4 @@
-"""Scale stress for the distributed BA paths (VERDICT round-1 item 5).
+"""Scale stress for the distributed BA paths.
 
 Runs synthetic problems of increasing (K cameras, L landmarks, O
 observations) through the landmark-sharded fused solver on an 8-device

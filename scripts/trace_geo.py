@@ -11,10 +11,10 @@ from photometric_bundle_adjustment_tpu.models import geometric_ba, synthetic
 from photometric_bundle_adjustment_tpu.optim import ba, fused
 from photometric_bundle_adjustment_tpu.ops import geo_mega
 from photometric_bundle_adjustment_tpu.utils.runtime import (
-    enable_compilation_cache,
+    configure_runtime,
 )
 
-enable_compilation_cache()
+configure_runtime()
 model = "pinhole"
 problem, _, _ = synthetic.synth_ba_problem(
     model=model, K=200, L=8192, obs_per_landmark=6, pixel_noise=0.3,

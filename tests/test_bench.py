@@ -29,7 +29,7 @@ def test_build_pba_step_and_time_iters():
     import jax.numpy as jnp
 
     lm_step, problem, const = bench.build_pba_step(
-        jnp.float32, use_kernel=False, K=12, L=48, obs_per_lm=3, H=64, W=96,
+        jnp.float32, K=12, L=48, obs_per_lm=3, H=64, W=96,
     )
     dt = bench.time_iters(lm_step, problem, iters=3, const=const)
     assert dt > 0.0
@@ -38,8 +38,8 @@ def test_build_pba_step_and_time_iters():
 @pytest.mark.slow
 def test_keyframes_composite_stage_timers():
     """The per-stage device timers behind the keyframes_per_s composite
-    metric compile and run at toy shapes (the real shapes are EuRoC-sized
-    and TPU-bound; bench.py main exercises those)."""
+    metric compile and run at toy shapes (the real shapes are EuRoC-sized;
+    bench.py main exercises those on the accelerator)."""
     step, imgs = bench.build_detect_step(H=64, W=96, B=2, F=128)
     bench.time_devcalls(step, imgs, 3)
     chunk_fn, key, lane, I = bench.build_match_chunk(
@@ -52,11 +52,10 @@ def test_keyframes_composite_stage_timers():
 
 
 def test_hot_programs_free_of_windowed_and_reversed_ops():
-    """Regression guard for the round-2/3 XLA:TPU fusion_emitter SIGABRT:
-    reversed/windowed lowerings (jnp.convolve, [..., ::-1] slices,
-    lax.reduce_window) intermittently crash the TPU compiler
-    (fusion_emitter.cc:4273 window-bounds CHECK).  The hot compiled
-    programs must stay free of that op class."""
+    """The hot compiled programs stay free of reversed/windowed lowerings
+    (jnp.convolve, [..., ::-1] slices, lax.reduce_window) and
+    convolutions: the detector's filters are shift-multiply-adds and the
+    matcher is gathers, reductions and matmuls."""
     import re
 
     import jax

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from photometric_bundle_adjustment_tpu.core import cameras
+from photometric_bundle_adjustment_tpu.core import camera_slab, cameras
 
 MODELS = ["pinhole", "eucm", "ds", "kb4"]
 
@@ -94,3 +94,34 @@ def test_initialize_from_ds():
     assert float(e[4]) == 0.5 and float(e[5]) == 1.0
     d = cameras.initialize("ds", ds)
     np.testing.assert_allclose(np.asarray(d), np.asarray(ds))
+
+
+@pytest.mark.parametrize("model", ["pinhole", "eucm", "ds", "kb4"])
+def test_camera_slab_jacobian_matches_autodiff(model):
+    rng = np.random.default_rng(3)
+    N = 64
+    pts = rng.normal(size=(N, 3))
+    pts[:, 2] = np.abs(pts[:, 2]) + 0.5          # in front of the camera
+    intr = np.asarray(cameras.test_params(model, jnp.float64))
+    intr_slab = jnp.asarray(np.tile(intr[:, None], (1, N)))
+
+    qx = jnp.asarray(pts[None, :, 0])            # (1, N) planes
+    qy = jnp.asarray(pts[None, :, 1])
+    qz = jnp.asarray(pts[None, :, 2])
+    u, v, J0, J1 = camera_slab.project_slab(model, intr_slab, qx, qy, qz)
+
+    ref_uv = np.asarray(cameras.project(model, jnp.asarray(intr),
+                                        jnp.asarray(pts)))
+    Jref = np.asarray(jax.vmap(
+        jax.jacfwd(lambda p: cameras.project(model, jnp.asarray(intr), p))
+    )(jnp.asarray(pts)))                         # (N, 2, 3)
+
+    np.testing.assert_allclose(np.asarray(u)[0], ref_uv[:, 0], rtol=1e-10)
+    np.testing.assert_allclose(np.asarray(v)[0], ref_uv[:, 1], rtol=1e-10)
+    for c in range(3):
+        np.testing.assert_allclose(
+            np.asarray(J0[c])[0], Jref[:, 0, c], rtol=1e-7, atol=1e-9
+        )
+        np.testing.assert_allclose(
+            np.asarray(J1[c])[0], Jref[:, 1, c], rtol=1e-7, atol=1e-9
+        )

@@ -3,7 +3,7 @@
 Byte-level cross-validation against the ACTUAL reference headers (a C++
 harness that links cereal/Eigen/Sophus and calls the reference's own
 serialize() adapters) lives in refbaseline/test_cereal_io.cpp and is run
-out-of-band (results recorded in RESULTS.md) — the CI suite covers the
+out-of-band — the CI suite covers the
 pure-Python round trip and the bit-layout invariants.
 """
 

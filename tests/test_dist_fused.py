@@ -113,7 +113,7 @@ def test_distributed_dense_layout_matches_single_device():
 
 @pytest.mark.slow
 def test_camera_partitioned_pcg_matches_replicated():
-    """VERDICT round-1 missing #4: the reduced camera system solved
+    """The reduced camera system solved
     camera-row-partitioned (matrix-free Schur PCG, psum_scatter/all_gather
     collectives) must reproduce the replicated dense-Cholesky solve."""
     problem, _, _ = synthetic.synth_ba_problem(

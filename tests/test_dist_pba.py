@@ -50,7 +50,7 @@ def test_host_chip_mesh_shape():
 
 @pytest.mark.slow
 def test_distributed_pba_on_real_map():
-    """VERDICT r4 weak #6: the distributed solvers had only ever seen
+    """The distributed solvers had only ever seen
     synthetic problems.  Run a real (heavy-tailed) EuRoC mini-map through
     parallel/dist_fused.py on the 8-fake-device mesh and require agreement
     with the single-device fused solve."""
@@ -84,3 +84,24 @@ def test_distributed_pba_on_real_map():
     # same assembly math on landmark-aligned shards: tight agreement
     assert parity["cost_rel"] < 1e-4
     assert parity["pose_maxdiff"] < 1e-3
+
+
+def test_pba_app_distributed_needs_enough_devices(monkeypatch, capsys):
+    """``apps.pba --distributed D`` uses the backend's real devices and
+    refuses D beyond them, instead of switching platform."""
+    from photometric_bundle_adjustment_tpu.apps import pba as pba_app
+    from photometric_bundle_adjustment_tpu.models import synthetic
+    from photometric_bundle_adjustment_tpu.utils import runtime
+
+    monkeypatch.setattr(runtime, "configure_runtime", lambda: None)
+    backend = jax.default_backend()
+    n = len(jax.devices())
+    with pytest.raises(SystemExit) as e:
+        pba_app.main([
+            "--dataset-path", "synthetic:0",
+            "--cam-calib", synthetic.EUROC_CALIB,
+            "--distributed", str(n + 1),
+        ])
+    assert e.value.code == 2
+    assert f"needs {n + 1} devices" in capsys.readouterr().err
+    assert jax.default_backend() == backend and len(jax.devices()) == n

@@ -200,8 +200,8 @@ def test_native_matcher_parity():
 
 def test_detect_overlap_vs_opencv():
     """Window-NMS vs OpenCV's greedy NMS: measured selection overlap on a
-    real EuRoC frame (validates the claim in features/detect.py — VERDICT
-    round-1 'weak #6').  cv2.goodFeaturesToTrack is the exact routine the
+    real EuRoC frame (validates the claim in features/detect.py).
+    cv2.goodFeaturesToTrack is the exact routine the
     reference calls (keypoints.h:138)."""
     cv2 = pytest.importorskip("cv2")
     import os
@@ -263,8 +263,7 @@ def test_five_point_recovers_true_essential():
 @pytest.mark.slow
 def test_ransac_nister_beats_eight_point_at_high_outlier_rate():
     """5-point minimal samples survive outlier rates where 8-point samples
-    are almost never clean (P(clean) = (1-e)^k) — VERDICT round-1
-    missing #2."""
+    are almost never clean (P(clean) = (1-e)^k)."""
     rng = np.random.default_rng(5)
     M, n_out = 96, 60  # 62% outliers: (0.38)^5 ~ 1/126, (0.38)^8 ~ 1/2340
     xi = np.array([0.4, 0.1, -0.2, 0.05, -0.03, 0.08])
@@ -296,8 +295,8 @@ def test_ransac_nister_beats_eight_point_at_high_outlier_rate():
 @pytest.mark.slow
 def test_ransac_pnp_p3p_beats_dlt_at_high_outlier_rate():
     """P3P minimal samples (P(clean) = (1-e)^3) localise where the 6-point
-    DLT's clean-sample probability collapses — VERDICT round-1 missing #3
-    (EPnP parity via a minimal solver, map_utils.h:268-278)."""
+    DLT's clean-sample probability collapses (EPnP parity via a minimal
+    solver, map_utils.h:268-278)."""
     rng = np.random.default_rng(11)
     M, n_out = 120, 78  # 65% outliers: (0.35)^3 ~ 1/23, (0.35)^6 ~ 1/544
     xi = np.array([0.3, -0.2, 0.4, 0.1, 0.05, -0.07])
@@ -372,3 +371,28 @@ def test_p3p_triad_alignment_exact():
             for k in range(4) if bool(valid[k])
         ]
         assert errs and min(errs) < 1e-6, (i, errs)
+
+
+@pytest.mark.parametrize("rows", [(7, 5), (64, 33), (130, 1)])
+def test_hamming_int8_matmul_equals_popcount(rows):
+    """The int8-matmul Hamming form the accelerators run is bit-identical
+    to xor+popcount, including all-zero and all-one descriptors."""
+    n1, n2 = rows
+    rng = np.random.default_rng(n1)
+    d1 = rng.integers(0, 2**32, (n1, 8), dtype=np.uint32)
+    d2 = rng.integers(0, 2**32, (n2, 8), dtype=np.uint32)
+    d1[0] = 0
+    d1[-1] = 0xFFFFFFFF
+    d2[0] = 0xFFFFFFFF
+    d2[-1] = 0
+    pop = np.zeros((n1, n2), np.int64)
+    for w in range(8):
+        x = d1[:, w][:, None] ^ d2[:, w][None, :]
+        pop += np.vectorize(lambda v: bin(int(v)).count("1"))(x)
+    got = match.hamming_matrix_mxu(jnp.asarray(d1), jnp.asarray(d2))
+    np.testing.assert_array_equal(np.asarray(got), pop)
+    np.testing.assert_array_equal(
+        np.asarray(match.hamming_matrix_popcount(jnp.asarray(d1),
+                                                 jnp.asarray(d2))), pop
+    )
+

@@ -1,7 +1,7 @@
-"""True multi-process jax.distributed execution (VERDICT round-1 #5/#6):
+"""True multi-process jax.distributed execution:
 two OS processes join one distributed job; the fused-Schur LM solve's
 collectives cross the process boundary via Gloo (the CPU stand-in for
-ICI/DCN on a pod)."""
+NCCL across hosts)."""
 
 import os
 import subprocess

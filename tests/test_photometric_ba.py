@@ -264,109 +264,64 @@ def test_tile_sampler_matches_gather_sampler():
         )
 
 
-@pytest.mark.slow
-def test_kernel_batched_solver_matches_gather_solver():
-    """imagesort_problem + make_batched_fns (Pallas kernel, interpret on
-    CPU) reproduce the vmapped gather-sampler solve."""
-    from photometric_bundle_adjustment_tpu.models import synthetic
-    from photometric_bundle_adjustment_tpu.optim import fused
-    from photometric_bundle_adjustment_tpu.ops import patch_sample as ps
-
-    problem, images_flat, H, W, _, _ = synthetic.synth_pba_problem(
-        K=5, L=96, H=64, W=96, pose_noise=0.01, depth_noise=0.05
-    )
-    images_flat = jnp.asarray(np.asarray(images_flat), jnp.float32)
-    problem = jax.tree_util.tree_map(
-        lambda x: x.astype(jnp.float32)
-        if hasattr(x, "dtype") and x.dtype == jnp.float64 else x,
-        problem,
-    )
-    cfg = ba.BAConfig(max_iterations=5, huber_delta=9.0)
-
-    # reference: gather-sampler fused solve
-    solver_ref = pba.make_fused_solver("pinhole", images_flat, H, W)
-    plan_ref = fused.plan_for_problem(problem, host=False)
-    p_ref, r_ref = solver_ref(problem, plan_ref, cfg)
-
-    # kernel path (interpret mode on CPU)
-    prob2, iog, gcnt = pba.imagesort_problem(problem, 5)
-    res_b, rj_b = pba.make_batched_fns(
-        "pinhole", images_flat, H, W, iog, gcnt
-    )
-    # route the kernel through the interpreter on CPU
-    import photometric_bundle_adjustment_tpu.ops.patch_sample as psmod
-    orig = psmod.sample_patches_grouped
-    import functools as ft
-    psmod_sample = ft.partial(orig, interpret=True)
-    try:
-        psmod.sample_patches_grouped = psmod_sample
-        # rebuild fns so they close over the interpreted sampler
-        res_b, rj_b = pba.make_batched_fns(
-            "pinhole", images_flat, H, W, iog, gcnt
-        )
-        solver_k = fused.make_fused_ba_solver(
-            res_b, pba.cam_retract, 8, rj_fn=rj_b
-        )
-        plan_k = fused.plan_for_problem(prob2, host=False)
-        p_k, r_k = solver_k(prob2, plan_k, cfg)
-    finally:
-        psmod.sample_patches_grouped = orig
-
-    np.testing.assert_allclose(
-        float(r_ref.cost), float(r_k.cost), rtol=1e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(p_ref.cam_states.pose), np.asarray(p_k.cam_states.pose),
-        atol=2e-4,
-    )
-    np.testing.assert_allclose(
-        np.asarray(p_ref.inv_depth), np.asarray(p_k.inv_depth), atol=2e-4
-    )
-
-
-@pytest.mark.slow
-def test_kernel_dense_solver_matches_gather_solver():
-    """densify_problem + make_kernel_dense_solver (slot-major dense
-    assembly, Pallas sampling via interpret on CPU) reproduce the
-    gather-sampler dense solve — the production TPU path of
-    pipeline.pba_refine."""
-    from photometric_bundle_adjustment_tpu.models import synthetic
+def _plain_and_fused_steps(model, problem, images_flat, H, W, host):
+    """One build + damped solve (lambda 1e-4) through the plain
+    ``make_solver`` formulation (per-block normal equations, ba.schur_solve)
+    and through the gather-sampled ``make_fused_solver``."""
     from photometric_bundle_adjustment_tpu.optim import fused
 
+    cfg = ba.BAConfig(huber_delta=9.0)
+    lam = jnp.asarray(1e-4, problem.inv_depth.dtype)
+    free = ~problem.fixed_cams
+    _, build_neq = ba.make_ba_step(
+        pba.make_residual_fn(model, images_flat, H, W), pba.cam_retract, 8,
+        rj_fn=pba.make_rj_fn(model, images_flat, H, W),
+    )
+    cost0, *neq0 = jax.jit(build_neq, static_argnums=1)(problem, cfg)
+    dc0, dp0 = ba.schur_solve(*neq0, lam, free, problem.lm_valid, cfg)
+    solver = pba.make_fused_solver(model, images_flat, H, W)
+    plan = fused.plan_for_problem(problem, host=host)
+    cost1, neq1 = solver.build(problem, plan, cfg)
+    dc1, dp1 = solver.solve_lam(neq1, plan, lam, free, cfg)
+    return (cost0, dc0, dp0), (cost1, dc1, dp1)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+@pytest.mark.parametrize("model", ["pinhole", "ds"])
+def test_fused_gather_build_matches_plain_build(model):
+    """The gather-sampled fused build with the accelerator plan (what the
+    GPU runs in pipeline/pba_refine.py) takes the same LM step as the
+    plain make_solver formulation."""
+    from photometric_bundle_adjustment_tpu.models import synthetic
+
     problem, images_flat, H, W, _, _ = synthetic.synth_pba_problem(
-        K=5, L=96, H=64, W=96, pose_noise=0.01, depth_noise=0.05
+        model=model, dtype=jnp.float64
     )
-    images_flat = jnp.asarray(np.asarray(images_flat), jnp.float32)
-    problem = jax.tree_util.tree_map(
-        lambda x: x.astype(jnp.float32)
-        if hasattr(x, "dtype") and x.dtype == jnp.float64 else x,
-        problem,
+    (c0, dc0, dp0), (c1, dc1, dp1) = _plain_and_fused_steps(
+        model, problem, images_flat, H, W, host=False
     )
-    cfg = ba.BAConfig(max_iterations=5, huber_delta=9.0)
+    assert float(c0) > 0.0
+    assert abs(float(c1) - float(c0)) <= 1e-9 * float(c0)
+    assert _rel(dc1, dc0) < 1e-8
+    assert _rel(dp1, dp0) < 1e-8
 
-    prob_d, plan = fused.densify_problem(problem)
 
-    solver_ref = pba.make_fused_solver("pinhole", images_flat, H, W)
-    p_ref, r_ref = solver_ref(prob_d, plan, cfg)
+@pytest.mark.gpu
+def test_fused_gather_build_matches_plain_build_f32_on_gpu():
+    """The same step parity in float32 on the card, with f32 matrix
+    products pinned to full precision (utils/runtime.configure_runtime)."""
+    from photometric_bundle_adjustment_tpu.models import synthetic
 
-    import functools as ft
-
-    import photometric_bundle_adjustment_tpu.ops.patch_sample as psmod
-    orig = psmod.sample_patches_grouped
-    try:
-        psmod.sample_patches_grouped = ft.partial(orig, interpret=True)
-        solver_k = pba.make_kernel_dense_solver(
-            "pinhole", images_flat, H, W, prob_d, 5
+    problem, images_flat, H, W, _, _ = synthetic.synth_pba_problem(
+        model="ds", dtype=jnp.float32
+    )
+    with jax.default_matmul_precision("float32"):
+        (c0, dc0, dp0), (c1, dc1, dp1) = _plain_and_fused_steps(
+            "ds", problem, images_flat, H, W, host=False
         )
-        p_k, r_k = solver_k(prob_d, plan, cfg)
-    finally:
-        psmod.sample_patches_grouped = orig
-
-    np.testing.assert_allclose(float(r_ref.cost), float(r_k.cost), rtol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(p_ref.cam_states.pose), np.asarray(p_k.cam_states.pose),
-        atol=2e-4,
-    )
-    np.testing.assert_allclose(
-        np.asarray(p_ref.inv_depth), np.asarray(p_k.inv_depth), atol=2e-4
-    )
+    assert _rel(dc1, dc0) < 1e-4
+    assert _rel(dp1, dp0) < 1e-4
